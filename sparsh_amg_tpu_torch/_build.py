@@ -1,8 +1,9 @@
 """Builds and loads the package's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  ``nvcc`` compiles all
-of them into one shared library for Hopper (``sm_90a``) at first use, keyed
-by a hash of the sources and flags, in ``_build/`` next to this file; the
+The sources under ``csrc/`` have a plain C interface.  At first use one
+``nvcc`` per source compiles it for Hopper (``sm_90a``), all started
+together, and one more links the objects into a shared library, keyed by a
+hash of the sources and flags, in ``_build/`` next to this file; the
 library is loaded with ``ctypes``.  Nothing here runs at import time: the
 CPU tests import every module of the package on a machine without ``nvcc``.
 """
@@ -20,7 +21,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -37,6 +38,8 @@ _ENTRIES = {
                          _p, _p, _p, _p],
     # val_bf16, cols, vals, k, n_pad, x, y, stream
     "ell_spmv_launch": [_i, _p, _p, _i, _i, _p, _p, _p],
+    # val_bf16, bs, cols, vals, kn, n, n_pad, x, y, stream
+    "block_ell_spmv_launch": [_i, _i, _p, _p, _i, _i, _i, _p, _p, _p],
 }
 
 
@@ -65,16 +68,40 @@ def build() -> str:
     so = os.path.join(BUILD_DIR, f"kernels-{h.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
-    # per-process temporary name: concurrent builds must not clobber
+    # per-process temporary names: concurrent builds must not clobber
     # each other's half-written output
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    nvcc = nvcc_path()
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+              for s, o in zip(srcs, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     return so
+
+
+def _run(cmds: list) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}"
+                               f"\n{out}\n{err}")
 
 
 def lib() -> ctypes.CDLL:

@@ -56,6 +56,9 @@ _install()
 
 from sparsh_amg_tpu import _native  # noqa: E402
 from sparsh_amg_tpu._native import csr_arrays, get_lib  # noqa: E402
+from sparsh_amg_tpu.models.elasticity import (  # noqa: E402
+    elasticity2d, elasticity2d_nullspace, elasticity3d,
+    elasticity3d_nullspace)
 from sparsh_amg_tpu.models.poisson import poisson2d, poisson3d  # noqa: E402
 from sparsh_amg_tpu.params import AMGParams, KrylovParams  # noqa: E402
 from sparsh_amg_tpu.setup.hierarchy import Hierarchy, amg_setup  # noqa: E402
@@ -63,5 +66,7 @@ from sparsh_amg_tpu.setup.reorder import maybe_reorder  # noqa: E402
 from sparsh_amg_tpu.utils import serialize  # noqa: E402
 
 __all__ = ["AMGParams", "KrylovParams", "Hierarchy", "amg_setup",
-           "maybe_reorder", "poisson2d", "poisson3d", "get_lib",
+           "maybe_reorder", "poisson2d", "poisson3d", "elasticity2d",
+           "elasticity2d_nullspace", "elasticity3d", "elasticity3d_nullspace",
+           "get_lib",
            "csr_arrays", "serialize", "_native"]

@@ -17,13 +17,15 @@ import torch
 import torch.nn.functional as F
 
 from .._host import AMGParams, Hierarchy, csr_arrays, get_lib
+from ..ops.block_ell import BlockEllMatrix, csr_to_block_ell
 from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, _round_up,
                            csr_to_dense, csr_to_device, csr_to_ell)
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceLevel:
-    A: object                 # DiaMatrix | EllMatrix | DenseMatrix
+    A: object                 # DiaMatrix | BlockEllMatrix | EllMatrix |
+                              # DenseMatrix
     dinv: torch.Tensor        # (n_pad,) 1/a_ii, 0 in padding
     l1_dinv: torch.Tensor | None  # (n_pad,) 1/(a_ii + sum|offdiag|)
     lam_max: float            # upper bound on lambda_max(D^-1 A)
@@ -179,10 +181,18 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None, dtype=None,
                       and fine_hi.n_rows == n and not is_coarsest
                       and n > params.dense_size
                       and fine_hi.n_pad == _round_up(max(n, 1), 2048))
+        bs = getattr(lev, "bs", 1)
+        dev_A = None
         if fine_reuse:
             dev_A = fine_hi if fine_hi.bands.dtype == bdtype else \
                 dataclasses.replace(fine_hi, bands=fine_hi.bands.to(bdtype))
-        else:
+        elif bs > 1 and n > params.dense_size:
+            # systems level (bs dofs per node): bs x bs blocks over the
+            # node pattern, or None and scalar ELL-T below
+            dev_A = csr_to_block_ell(A, bs, bdtype,
+                                     n_pad=_round_up(max(n, 1), 2048),
+                                     device=device)
+        if dev_A is None:
             dev_A = csr_to_device(A, dtype=bdtype,
                                   prefer_dia=params.prefer_dia,
                                   dia_max_bands=params.dia_max_bands,
@@ -248,8 +258,13 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None, dtype=None,
 # ---------------------------------------------------------------------------
 # Carry-over from a JAX DeviceHierarchy (tests run both cycles on identical
 # frozen data).  Duck-typed on the JAX layouts' class names and fields, so
-# this module imports no jax.
+# this module imports no jax.  The TPU layouts (GellMatrix, SplitGell,
+# BlockGellMatrix) are decoded in numpy into a host CSR of the same stored
+# values and packed with the port's own packers.
 # ---------------------------------------------------------------------------
+
+_LANE, _WIN = 128, 1024       # sparsh_amg_tpu/ops/gell.py LANE and WIN
+
 
 def _tensor(a, device) -> torch.Tensor:
     arr = np.array(a)
@@ -257,6 +272,63 @@ def _tensor(a, device) -> torch.Tensor:
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
     return torch.from_numpy(arr).to(device)
+
+
+def _val_dtype(a) -> torch.dtype:
+    return torch.bfloat16 if np.asarray(a).dtype.name == "bfloat16" \
+        else torch.float32
+
+
+def _gell_columns(M) -> np.ndarray:
+    """Absolute column of every stream position of a GELL-style table
+    (wwords, packed, s, wmode), as _decode_windows_jnp and
+    _gell_gather_xla decode it."""
+    packed = np.asarray(M.packed).astype(np.int64)
+    w = np.asarray(M.wwords).astype(np.int64)
+    if M.wmode == 32:
+        windows = w[:, : M.s]
+    else:
+        s = np.arange(M.s)
+        windows = (w[:, s // 2] >> (16 * (s % 2))) & 0xFFFF
+    sel = (packed >> 10).reshape(packed.shape[0], -1)
+    base = np.take_along_axis(windows, sel, axis=1).reshape(packed.shape)
+    return (base * _WIN + ((packed >> 7) & 7) * _LANE
+            + (packed & 127)).reshape(-1)
+
+
+def _stream_csr(rows, cols, vals, shape) -> sp.csr_matrix:
+    """CSR of the stored nonzeros of a stream (padding slots hold 0)."""
+    keep = vals != 0
+    return sp.csr_matrix((vals[keep].astype(np.float64),
+                          (rows[keep], cols[keep])), shape=shape)
+
+
+def _gell_csr(M) -> sp.csr_matrix:
+    """Host CSR of a JAX GellMatrix (row-major stream of k slots per row)
+    or SplitGell (comb @ part)."""
+    if type(M).__name__ == "SplitGell":
+        return (_gell_csr(M.comb) @ _gell_csr(M.part)).tocsr()
+    cols = _gell_columns(M)
+    vals = np.asarray(M.vals).astype(np.float32).reshape(-1)
+    return _stream_csr(np.arange(cols.size) // M.k, cols, vals,
+                       (M.n_rows, M.n_cols))
+
+
+def _block_gell_csr(M) -> sp.csr_matrix:
+    """Host dof CSR of a JAX BlockGellMatrix: plane c*bs+d of bvals holds
+    A[c, d] of the block at (node row p // k, node col of position p)."""
+    bs = M.bs
+    node_cols = _gell_columns(M)
+    node_rows = np.arange(node_cols.size) // M.k
+    bv = np.asarray(M.bvals).astype(np.float32).reshape(bs * bs, -1)
+    rows, cols, vals = [], [], []
+    for c in range(bs):
+        for d in range(bs):
+            rows.append(bs * node_rows + c)
+            cols.append(bs * node_cols + d)
+            vals.append(bv[c * bs + d])
+    return _stream_csr(np.concatenate(rows), np.concatenate(cols),
+                       np.concatenate(vals), (M.n_rows, M.n_cols))
 
 
 def _layout_from_jax(M, device):
@@ -272,6 +344,20 @@ def _layout_from_jax(M, device):
     if kind == "DenseMatrix":
         return DenseMatrix(_tensor(M.mat, device), M.n_rows, M.n_cols,
                            M.out_pad)
+    if kind in ("GellMatrix", "SplitGell"):
+        vals = M.part.vals if kind == "SplitGell" else M.vals
+        E = csr_to_ell(_gell_csr(M), _val_dtype(vals), pad_multiple=2048,
+                       device=device)
+        if E.n_pad != M.n_pad:
+            raise ValueError(f"{kind} n_pad {M.n_pad} is not the level "
+                             f"padding {E.n_pad}")
+        return E
+    if kind == "BlockGellMatrix":
+        B = csr_to_block_ell(_block_gell_csr(M), M.bs, _val_dtype(M.bvals),
+                             n_pad=M.n_pad, device=device)
+        if B is None:
+            raise ValueError(f"no block-ELL kernel for block size {M.bs}")
+        return B
     raise TypeError(f"no port of the {kind} layout")
 
 

@@ -20,10 +20,11 @@ import torch
 from .._host import AMGParams, Hierarchy, KrylovParams, amg_setup, \
     maybe_reorder
 from ..ops.blas import dot as _blas_dot
-from ..ops.formats import spmv
+from ..ops.block_ell import BlockEllMatrix
+from ..ops.formats import EllMatrix, spmv
 from ..ops.fp64 import csr_to_fp64, residual64, to_fp32
 from .cycles import make_cycle
-from .device import DeviceHierarchy, to_device
+from .device import DeviceHierarchy, _torch_dtype, to_device
 from .krylov import pcg_init, pcg_step
 
 
@@ -101,6 +102,20 @@ class AMGSolver:
         self.device: DeviceHierarchy = to_device(
             self.hierarchy, self.params, fine_hi=self.A32,
             device=self.torch_device)
+        # The Krylov matvec runs on the fp32 fine operator.  When the
+        # cycle's fine operator holds the same fp32 values in the block
+        # layout (elasticity: node blocks against the fp64 path's scalar
+        # ELL-T rows), the matvec goes through it: the entries are the
+        # same fp32 rounding of A, only the summation order differs, and
+        # the fp32 ELL-T copy is dropped.
+        L0 = self.device.levels[0].A
+        self.mv_from_level0 = (
+            _torch_dtype(self.params.band_dtype) == torch.float32
+            and isinstance(self.A64, EllMatrix)
+            and isinstance(L0, BlockEllMatrix))
+        if self.mv_from_level0:
+            self.A32 = None
+        self._krylov_op = L0 if self.mv_from_level0 else self.A32
         self.n_pad = self.device.levels[0].n_pad
         self._cycle = make_cycle(self.params)
         self._dot = partial(_blas_dot, compensated=self.krylov.compensated_dots)
@@ -111,7 +126,8 @@ class AMGSolver:
 
     def device_bytes(self) -> int:
         """Persistent device footprint: frozen hierarchy + fp64 and fp32
-        fine operators (tensors shared between them counted once)."""
+        fine operators (tensors shared between them counted once; no fp32
+        copy when the Krylov matvec runs on level 0's block operator)."""
         from ..utils.meminfo import tree_device_bytes
         return tree_device_bytes((self.device, self.A64, self.A32))
 
@@ -119,7 +135,7 @@ class AMGSolver:
         """fp32 AMG-PCG on b until ||r|| <= tol ||b|| or maxiter
         iterations.  Returns (x, iters, relres)."""
         levels = self.device.levels
-        mv = lambda v: spmv(self.A32, v)
+        mv = lambda v: spmv(self._krylov_op, v)
         pc = lambda r: self._cycle(levels, r)
         state = pcg_init(mv, pc, b, self._dot)
         rr0 = rr = state[5].item()

@@ -76,10 +76,34 @@ def test_ell_kernel_matches_plain(cuda, dtype):
     assert ell_spmv.launches == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [2, 3, 6])
+def test_block_kernel_matches_plain(cuda, bs, dtype):
+    from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
+                                                    block_ell_spmv,
+                                                    csr_to_block_ell)
+    from sparsh_amg_tpu_torch.systems import random_blocks
+    M = csr_to_block_ell(random_blocks(700, bs, bs), bs, dtype, device=cuda)
+    x = _vec(np.random.default_rng(1), M.n_pad, cuda)
+    before = block_ell_spmv.launches
+    got = block_ell_spmv(M.cols, M.vals, x)
+    torch.cuda.synchronize()
+    assert _rel(got, block_ell_plain(M.cols, M.vals, x)) <= 1e-5
+    assert not got[M.n_rows:].any()
+    assert block_ell_spmv.launches == before + 1
+
+
 def test_wrappers_raise_on_mixed_devices(cuda):
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
+    from sparsh_amg_tpu_torch.ops.block_ell import block_ell_spmv
     bands = torch.ones(1, 2048, device=cuda)
     with pytest.raises(ValueError):
         K.dia_spmv(bands, torch.ones(2048), (0,))
     with pytest.raises(ValueError):
         K.dia_spmv(bands, torch.ones(2048, device=cuda).double(), (0,))
+    cols = torch.zeros(2, 682, dtype=torch.int32, device=cuda)
+    vals = torch.ones(2, 3, 2048, device=cuda)
+    with pytest.raises(ValueError):
+        block_ell_spmv(cols, vals, torch.ones(2048))
+    with pytest.raises(ValueError):
+        block_ell_spmv(cols.cpu(), vals, torch.ones(2048, device=cuda))

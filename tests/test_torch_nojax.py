@@ -17,17 +17,23 @@ _CHILD = r"""
 import json, sys
 sys.modules["jax"] = None              # import jax now raises ImportError
 import numpy as np
-from sparsh_amg_tpu_torch import AMGSolver, flagship
+from sparsh_amg_tpu_torch import AMGSolver, flagship, systems
 from sparsh_amg_tpu_torch._host import poisson3d
-A = poisson3d(16)
+if sys.argv[1] == "flagship":
+    A, ns = poisson3d(16), None
+    p, kr = flagship.params(dense_size=256), flagship.krylov()
+else:                                  # smoothed aggregation, 3 dofs/node
+    A, ns = systems.problem(3, 6)
+    p, kr = systems.params(3, dense_size=256), systems.krylov()
 b = np.random.default_rng(0).standard_normal(A.shape[0])
-res = AMGSolver(A, flagship.params(dense_size=256), flagship.krylov(),
-                device="cpu").solve(b)
+solver = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
+res = solver.solve(b)
 import sparsh_amg_tpu
 print(json.dumps({
     "converged": res.converged, "iterations": res.iterations,
     "passes": res.refine_passes,
     "relres": float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b)),
+    "L0": type(solver.device.levels[0].A).__name__,
     "jax_modules": sorted(m for m in sys.modules
                           if m.split(".")[0] in ("jax", "jaxlib")
                           and sys.modules[m] is not None),
@@ -36,15 +42,28 @@ print(json.dumps({
 """
 
 
-def test_port_solves_without_jax():
+def _solve_without_jax(which):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _CHILD, which], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["converged"] and got["relres"] <= 1e-8, got
-    assert 8 <= got["iterations"] <= 16 and got["passes"] == 2, got
     assert got["jax_modules"] == [] and not got["real_package_init_ran"]
+    return got
+
+
+def test_port_solves_without_jax():
+    got = _solve_without_jax("flagship")
+    assert 8 <= got["iterations"] <= 16 and got["passes"] == 2, got
+
+
+def test_systems_solve_without_jax():
+    """The smoothed-aggregation setup modules load without jax, and the
+    fine elasticity level freezes in the block layout."""
+    got = _solve_without_jax("elasticity3d(6)")
+    assert got["L0"] == "BlockEllMatrix", got
+    assert got["iterations"] <= 20 and got["passes"] == 2, got
 
 
 def _imports(path):
