@@ -9,17 +9,25 @@ Phases (any failure raises, and the script exits non-zero):
   1. environment: GPU name and power limit, torch/CUDA/nvcc versions;
   2. build the CUDA kernels from sparsh_amg_tpu_torch/csrc/;
   3. every kernel entry against its plain PyTorch version on the card, at a
-     small size and at the flagship's shapes: max errors and median times;
+     small size, on random long-row matrices (every split-row launch
+     shape; two launches must give the same bits) and at the flagship's
+     shapes (the DIA operators and every ELL-T operator of the hierarchy,
+     each at the launch shape the solve gives it): max errors, median
+     device times, the least time the card could take (bound_ms) and the
+     time of one PyTorch call computing the same function (library_ms: a
+     cuSPARSE CSR SpMV, which the port never calls);
   4. the flagship solve, poisson3d(192) (7,077,888 unknowns), through
      AMGSolver, with kernel launch counts from that solve, the residual
      recomputed on the host in fp64, and a small solve on the card held
      against the same solve on the CPU;
   5. the systems path (smoothed aggregation, rigid-body modes, block
-     levels): elasticity3d(40) and elasticity2d(512), each with the block
-     kernel (fp32 and bf16) and the ELL kernel held against their plain
-     versions at the hierarchy's shapes, then primed at tol 1e-2 and
-     solved to 1e-8 with launch counts from that solve; and a small
-     elasticity3d(8) solve on the card held against the CPU.
+     levels): elasticity3d(40) and elasticity2d(512), each with every
+     block (fp32 and bf16) and ELL-T operator of the hierarchy held
+     against its plain version, then primed at tol 1e-2 and solved to
+     1e-8 with launch counts from that solve; and a small elasticity3d(8)
+     solve on the card held against the CPU.
+The plain versions sum every stored slot, row lengths ignored, so a wrong
+row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
 after.  The line before the last is one JSON object with the kernels'
 errors, times and launch counts; the last line is
@@ -38,6 +46,20 @@ REL_TOL = 1e-5      # kernel vs plain version: same inputs, fp32 sums in
 TIMED_RUNS = 25
 SLEEP_CYCLES = 50_000_000   # ~30 ms of device sleep ahead of timed runs
 SMALL_E3D = 8               # elasticity3d size of the card-vs-CPU check
+REPEATS = 3                 # warm solves timed after the counted one
+# the least time the card could take (H100 SXM data sheet): device memory
+# at 3.35 TB/s, fp32 outside the tensor cores at 67 TFLOP/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# random long-row cases (rows, columns, longest row) and, for the block
+# kernel, (node rows, node columns, longest node row) per block size:
+# fewer than 32 rows, rows not a multiple of 32, G x S of 32 x 8, 32 x 4,
+# 32 x 1, 16 x 1, 8 x 1, 4 x 1 and 2 x 1 on an H100
+LONG_ELL = [(20, 4000, 3000), (77, 5000, 3000), (2000, 3500, 1500),
+            (10000, 12000, 250), (1000, 1500, 20), (1000, 1500, 40),
+            (1000, 1500, 100)]
+LONG_BLOCK = [(10, 600, 450), (15, 2500, 2000), (700, 900, 200),
+              (100, 150, 20), (100, 150, 40), (100, 150, 100)]
 
 
 def run(cmd):
@@ -68,13 +90,9 @@ def timed_ms(fn, queued=True):
     return statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
 
 
-def compare(name, kernel, plain, results, time_it=True):
-    """Kernel output(s) against the plain version's; raise above REL_TOL.
-    Records max_abs_err, max_rel_err (normwise), both median device
-    times, and the kernel's time per call as the host launches it."""
+def _errors(name, got, want):
+    """(max abs error, normwise relative error) of got against want."""
     import torch
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     abs_err = rel_err = 0.0
@@ -84,22 +102,153 @@ def compare(name, kernel, plain, results, time_it=True):
         e = (g.double() - w.double()).abs().max().item()
         abs_err = max(abs_err, e)
         rel_err = max(rel_err, e / max(w.double().abs().max().item(), 1e-30))
+    return abs_err, rel_err
+
+
+def compare(name, kernel, plain, results, time_it=True, work=None,
+            library=None, same_bits=False):
+    """Kernel output(s) against the plain version's; raise above REL_TOL.
+    Records max_abs_err, max_rel_err (normwise), and when timed both
+    median device times and the kernel's time per call as the host
+    launches it.  `work` (real_bytes, padded_bytes, flops) gives bound_ms;
+    `library` = (note, {dtype: zero-arg call}) times one PyTorch call of
+    the same function (its output held to the plain version too), or says
+    why there is none.  `same_bits`: a second launch must give the same
+    bits."""
+    import torch
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err = _errors(name, got, want)
     rec = {"case": name, "max_abs_err": abs_err, "max_rel_err": rel_err}
+    if same_bits:
+        again = kernel()
+        torch.cuda.synchronize()
+        rec["same_bits"] = all(torch.equal(a, b) for a, b in zip(
+            got if isinstance(got, tuple) else (got,),
+            again if isinstance(again, tuple) else (again,)))
     if time_it:
         rec["ms"], rec["plain_ms"] = timed_ms(kernel), timed_ms(plain)
         rec["call_ms"] = timed_ms(kernel, queued=False)
+    if time_it and work is not None:
+        real, padded, flops = work
+        t_bytes, t_ops = real / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+        rec.update(real_bytes=real, padded_bytes=padded,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   TB_per_s_real=real / rec["ms"] / 1e9)
+    if time_it:
+        note, calls = library or ("none", {})
+        rec["library_note"], rec["library_ms"] = note, None
+        for dt, call in calls.items():
+            lib_out = call()
+            torch.cuda.synchronize()
+            lerr = _errors(f"{name} library {dt}", lib_out, want)[1]
+            rec[f"library_{dt}_rel_err"] = lerr
+            if dt == "fp32":
+                if not lerr <= REL_TOL:
+                    raise AssertionError(f"{name}: the library call "
+                                         f"disagrees ({lerr:.3e})")
+                rec["library_ms"] = timed_ms(call)
+            else:
+                rec[f"library_{dt}_ms"] = timed_ms(call)
     results.append(rec)
     print(json.dumps(rec), flush=True)
     if not rel_err <= REL_TOL:
         raise AssertionError(f"{name}: rel err {rel_err:.3e} > {REL_TOL}")
+    if same_bits and not rec["same_bits"]:
+        raise AssertionError(f"{name}: two launches gave different bits")
     return rec
 
 
-def dia_cases(tag, bands, offsets, rng, results, time_it):
-    """All five tails of the DIA kernel on one band table."""
+def _csr_call(crow, col, val, shape, x):
+    """{"fp32": call[, "bf16": call]}: one cuSPARSE CSR SpMV y = A x over
+    the given rows, as torch runs `A @ x`; bf16 where torch takes it."""
+    import torch
+    calls = {}
+    for dt in (torch.float32, torch.bfloat16):
+        A = torch.sparse_csr_tensor(crow, col, val.to(dt), size=shape)
+        xd = x.to(dt)
+        try:
+            (A @ xd).float()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"library CSR {dt}: {type(e).__name__}: "
+                  f"{str(e).splitlines()[0][:200]}", flush=True)
+            continue
+        calls["fp32" if dt == torch.float32 else "bf16"] = \
+            (lambda A=A, xd=xd: (A @ xd).float())
+    note = "csr fp32 and bf16" if "bf16" in calls else "csr fp32 only"
+    return note, calls
+
+
+def _crow(counts):
+    import torch
+    crow = torch.zeros(counts.shape[0] + 1, dtype=torch.int32,
+                       device=counts.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    return crow
+
+
+def ell_library(M, x):
+    """cuSPARSE CSR SpMV of the ELL-T matrix's real slots (k < lens[i])."""
+    import torch
+    live = (torch.arange(M.k, device=M.cols.device)[:, None]
+            < M.lens[None, :]).T                 # (n_pad, K), row-major
+    return _csr_call(_crow(M.lens), M.cols.T[live].contiguous(),
+                     M.vals.T[live].float().contiguous(),
+                     (M.n_pad, x.shape[0]), x)
+
+
+def block_library(M, x):
+    """cuSPARSE CSR SpMV of the block matrix's stored values (the dense
+    blocks of its real node slots) over dof rows."""
+    import torch
+    dev = M.cols.device
+    bs, n = M.bs, M.n_rows
+    node = torch.arange(n, device=dev) // bs
+    live = torch.arange(M.k, device=dev)[None, :] < M.lens[node][:, None]
+    cols = (M.cols[:, node].T * bs)[:, :, None] + torch.arange(
+        bs, device=dev, dtype=torch.int32)           # (n, K, bs)
+    vals = M.vals[:, :, :n].permute(2, 0, 1)          # vals[k, d, t]
+    mask = live[:, :, None].expand(n, M.k, bs)
+    counts = torch.zeros(M.n_pad, dtype=torch.int32, device=dev)
+    counts[:n] = M.lens[node] * bs
+    return _csr_call(_crow(counts), cols[mask].int().contiguous(),
+                     vals[mask].float().contiguous(),
+                     (M.n_pad, x.shape[0]), x)
+
+
+def dia_library(bands, offsets, n, x):
+    """cuSPARSE CSR SpMV of the band matrix's nonzeros."""
+    import torch
+    rows, cols, vals = [], [], []
+    i = torch.arange(n, device=bands.device)
+    for d, off in enumerate(offsets):
+        keep = bands[d, :n] != 0
+        rows.append(i[keep])
+        cols.append(i[keep] + off)
+        vals.append(bands[d, :n][keep].float())
+    n_pad = bands.shape[1]
+    A = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                             torch.cat(cols)]),
+                                torch.cat(vals), (n_pad, n_pad)
+                                ).coalesce().to_sparse_csr()
+    return _csr_call(A.crow_indices().int(), A.col_indices().int(),
+                     A.values(), (n_pad, n_pad), x)
+
+
+# vectors each DIA tail reads or writes once (inputs, then outputs)
+DIA_VECTORS = {"dia_spmv": 2, "dia_residual": 3, "dia_dinv_residual": 4,
+               "dia_jacobi_sweep": 4, "dia_cheb_step": 7}
+
+
+def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None):
+    """All five tails of the DIA kernel on one band table of n_rows real
+    rows."""
     import torch
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
     n = bands.shape[1]
+    n_rows = n if n_rows is None else n_rows
     vec = lambda: torch.from_numpy(
         rng.standard_normal(n).astype(np.float32)).to(bands.device)
     x, b, d, r = vec(), vec(), vec(), vec()
@@ -122,41 +271,131 @@ def dia_cases(tag, bands, offsets, rng, results, time_it):
          P(K.CHEB, bands, offsets, d, b=r, dinv=dinv, x=x, s0=0.3, s1=0.9)),
     ]
     dt = "bf16" if bands.dtype == torch.bfloat16 else "fp32"
+    nz = int(torch.count_nonzero(bands)) if time_it else 0
     for name, kern, plain in cases:
-        compare(f"{name} {tag} {dt} n_pad={n}", kern, plain, results, time_it)
+        nvec = DIA_VECTORS[name]
+        work = (nz * bands.element_size() + 4 * n_rows * nvec,
+                bands.nbytes + 4 * n * nvec, 2 * nz)
+        lib = (dia_library(bands, offsets, n_rows, x)
+               if time_it and name == "dia_spmv" else None)
+        compare(f"{name} {tag} {dt} n_pad={n}", kern, plain, results,
+                time_it, work=work, library=lib)
 
 
-def ell_case(tag, M, rng, results, time_it):
+def ell_case(tag, M, rng, results, time_it, same_bits=False):
+    """The ELL kernel against its plain version on one table."""
     import torch
     from sparsh_amg_tpu_torch.ops.ell_spmv import ell_plain, ell_spmv
+    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
     x = torch.from_numpy(
         rng.standard_normal(max(M.n_cols, 1)).astype(np.float32)).to(
         M.cols.device)
     dt = "bf16" if M.vals.dtype == torch.bfloat16 else "fp32"
-    compare(f"ell_spmv {tag} {dt} K={M.k} n_pad={M.n_pad}",
-            lambda: ell_spmv(M.cols, M.vals, x),
-            lambda: ell_plain(M.cols, M.vals, x), results, time_it)
+    g, s = launch_shape(M.n_rows, M.k, M.cols.device)
+    work = lib = None
+    if time_it:
+        slots = int(M.lens.sum())
+        work = (slots * (M.vals.element_size() + 4) + 4 * M.n_cols
+                + 4 * M.n_rows,
+                M.vals.nbytes + M.cols.nbytes + 4 * M.n_pad + 4 * M.n_cols,
+                2 * slots)
+        lib = ell_library(M, x)
+    return compare(f"ell_spmv {tag} {dt} K={M.k} n={M.n_rows} "
+                   f"n_pad={M.n_pad} G={g} S={s}",
+                   lambda: ell_spmv(M.cols, M.vals, M.lens, x, M.n_rows),
+                   lambda: ell_plain(M.cols, M.vals, x), results,
+                   time_it, work=work, library=lib, same_bits=same_bits)
 
 
-def block_case(tag, M, rng, results, time_it):
-    """The block kernel against its plain version on one table; records
-    the table's bytes and the kernel's rate when timed."""
+def block_case(tag, M, rng, results, time_it, same_bits=False):
+    """The block kernel against its plain version on one table."""
     import torch
     from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
                                                     block_ell_spmv)
-    x = torch.from_numpy(
-        rng.standard_normal(M.n_pad).astype(np.float32)).to(M.cols.device)
+    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    x = torch.from_numpy(rng.standard_normal(max(M.n_pad, M.n_cols)).astype(
+        np.float32)).to(M.cols.device)
     dt = "bf16" if M.vals.dtype == torch.bfloat16 else "fp32"
-    rec = compare(f"block_ell_spmv {tag} {dt} bs={M.bs} K={M.k} "
-                  f"n={M.n_rows} n_pad={M.n_pad}",
-                  lambda: block_ell_spmv(M.cols, M.vals, x),
-                  lambda: block_ell_plain(M.cols, M.vals, x), results,
-                  time_it)
+    g, s = launch_shape(M.n_rows, M.k, M.cols.device)
+    work = lib = None
     if time_it:
-        nbytes = (M.vals.nbytes + M.cols.nbytes + 4 * M.n_pad
-                  + 4 * M.n_cols)
-        print(json.dumps({"case": rec["case"], "bytes": nbytes,
-                          "TB_per_s": nbytes / rec["ms"] / 1e9}), flush=True)
+        node_slots = int(M.lens.sum())
+        work = (node_slots * (4 + M.bs * M.bs * M.vals.element_size())
+                + 4 * M.n_cols + 4 * M.n_rows,
+                M.vals.nbytes + M.cols.nbytes + 4 * M.n_pad + 4 * M.n_cols,
+                2 * node_slots * M.bs * M.bs)
+        lib = block_library(M, x)
+    return compare(f"block_ell_spmv {tag} {dt} bs={M.bs} K={M.k} "
+                   f"n={M.n_rows} n_pad={M.n_pad} G={g} S={s}",
+                   lambda: block_ell_spmv(M.cols, M.vals, M.lens, x),
+                   lambda: block_ell_plain(M.cols, M.vals, x),
+                   results, time_it, work=work, library=lib,
+                   same_bits=same_bits)
+
+
+def long_row_cases(rng, results, dev):
+    """The split-row launches on random long-row matrices (rows of 0 to
+    3,000 slots), fp32 and bf16: against the plain version, and two
+    launches must give the same bits."""
+    import torch
+    from sparsh_amg_tpu_torch.ops.block_ell import csr_to_block_ell
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_ell
+    from sparsh_amg_tpu_torch.systems import random_long_rows
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in LONG_ELL:
+            E = csr_to_ell(random_long_rows(*shape, seed=5), dt, 2048,
+                           device=dev)
+            ell_case(f"long rows {shape}", E, rng, results, time_it=False,
+                     same_bits=True)
+        for bs in (2, 3, 6):
+            for shape in LONG_BLOCK:
+                M = csr_to_block_ell(random_long_rows(*shape, seed=6, bs=bs),
+                                     bs, dt, device=dev)
+                block_case(f"long rows {shape}", M, rng, results,
+                           time_it=False, same_bits=True)
+
+
+def sparse_operators(levels):
+    """[(name, matrix)]: every ELL-T and block operator of a device
+    hierarchy, named as the kernel cases are ("P0", "R1", "A2" for ELL-T,
+    "L1" for a block level)."""
+    from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
+    from sparsh_amg_tpu_torch.ops.formats import EllMatrix
+    out = []
+    for li, lev in enumerate(levels):
+        for f in ("A", "P", "R"):
+            M = getattr(lev, f)
+            if isinstance(M, BlockEllMatrix):
+                out.append((f"L{li}", M))
+            elif isinstance(M, EllMatrix):
+                out.append((f"{f}{li}", M))
+    return out
+
+
+def launch_shapes(levels):
+    """The chooser's (G, S) for every ELL-T and block operator of a device
+    hierarchy, as {name: [rows, K, G, S]}."""
+    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    return {name: [M.n_rows, M.k,
+                   *launch_shape(M.n_rows, M.k, M.cols.device)]
+            for name, M in sparse_operators(levels)}
+
+
+def operator_cases(tag, levels, rng, results, timed):
+    """Every ELL-T and block operator of a device hierarchy against its
+    plain version, at the launch shape the solve gives it; the operators
+    named in `timed` are timed, block levels in fp32 and bf16."""
+    import dataclasses
+    import torch
+    from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
+    for name, M in sparse_operators(levels):
+        label, time_it = f"{tag}{name}", name in timed
+        if isinstance(M, BlockEllMatrix):
+            block_case(label, M, rng, results, time_it)
+            block_case(label, dataclasses.replace(
+                M, vals=M.vals.to(torch.bfloat16)), rng, results, time_it)
+        else:
+            ell_case(label, M, rng, results, time_it)
 
 
 def counted(fn):
@@ -172,11 +411,36 @@ def counted(fn):
     return out, {w.__name__: w.launches for w in wrappers}
 
 
+def calls_per_operator(fn, levels):
+    """Calls of the ELL and block SpMVs in fn(), by operator ("L<i> A/P/R"),
+    counted at the layouts' spmv methods (the wrappers and their launch
+    counts are left as they are)."""
+    from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
+    from sparsh_amg_tpu_torch.ops.formats import EllMatrix
+    names = {id(getattr(lev, f)): f"L{li} {f}"
+             for li, lev in enumerate(levels) for f in ("A", "P", "R")
+             if isinstance(getattr(lev, f), (EllMatrix, BlockEllMatrix))}
+    calls = dict.fromkeys(names.values(), 0)
+    real = EllMatrix.spmv, BlockEllMatrix.spmv
+
+    def shim(method):
+        def spmv(self, x):
+            key = names.get(id(self), "other")
+            calls[key] = calls.get(key, 0) + 1
+            return method(self, x)
+        return spmv
+    EllMatrix.spmv, BlockEllMatrix.spmv = map(shim, real)
+    try:
+        fn()
+    finally:
+        EllMatrix.spmv, BlockEllMatrix.spmv = real
+    return calls
+
+
 def systems_phase(dim, rng, results, dev):
-    """Phase 5 for one elasticity configuration: kernels at the
-    hierarchy's shapes, then the primed solve to 1e-8.  Returns the
-    solve's launch counts."""
-    import dataclasses
+    """Phase 5 for one elasticity configuration: every sparse operator
+    of the hierarchy against its plain version, then the primed solve to
+    1e-8.  Returns the solve's launch counts."""
     import torch
     from sparsh_amg_tpu_torch import AMGSolver, systems
     from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
@@ -191,9 +455,10 @@ def systems_phase(dim, rng, results, dev):
     levels = solver.device.levels
     kinds = [(type(l.A).__name__, l.n, getattr(l.A, "bs", 1),
               getattr(l.A, "k", None)) for l in levels]
+    shapes = launch_shapes(levels)
     print(f"{name} n={A.shape[0]} nnz={A.nnz} setup_s={solver.setup_time:.2f}"
-          f" levels={kinds} mv_from_level0={solver.mv_from_level0}",
-          flush=True)
+          f" levels={kinds} mv_from_level0={solver.mv_from_level0} "
+          f"launch_shapes={shapes}", flush=True)
     blocks = [(li, l.A) for li, l in enumerate(levels)
               if isinstance(l.A, BlockEllMatrix)]
     if dim == 3:
@@ -202,15 +467,11 @@ def systems_phase(dim, rng, results, dev):
     else:
         assert isinstance(levels[0].A, DiaMatrix), kinds
         assert [li for li, _ in blocks] == [1, 2], kinds
-    tag = f"e{dim}d"
-    for li, M in blocks:
-        block_case(f"{tag} L{li}", M, rng, results, time_it=True)
-        block_case(f"{tag} L{li}", dataclasses.replace(
-            M, vals=M.vals.to(torch.bfloat16)), rng, results, time_it=True)
+    timed = {f"L{li}" for li, _ in blocks}
     if dim == 3:
-        for li in range(3):
-            assert isinstance(levels[li].R, EllMatrix)
-            ell_case(f"{tag} R{li}", levels[li].R, rng, results, time_it=True)
+        assert all(isinstance(levels[li].R, EllMatrix) for li in range(3))
+        timed |= {"R0", "R1", "R2"}
+    operator_cases(f"e{dim}d ", levels, rng, results, timed)
 
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     rhs = solver.prepare_rhs(b)
@@ -222,10 +483,14 @@ def systems_phase(dim, rng, results, dev):
     solve_peak = device_memory_stats(dev).get("peak_bytes_in_use")
     x = res.x
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    repeats = [solver.solve(rhs).solve_time for _ in range(REPEATS)]
+    per_op = calls_per_operator(lambda: solver.solve(rhs), levels)
     ref = systems.REFERENCE[name]
     print(json.dumps({
         "config": name, "setup_s": solver.setup_time,
-        "solve_s": res.solve_time, "iterations": res.iterations,
+        "solve_s": res.solve_time, "solve_s_repeats": repeats,
+        "spmv_calls_per_operator": per_op,
+        "iterations": res.iterations,
         "refine_passes": res.refine_passes, "jax_reference": ref,
         "levels": solver.hierarchy.n_levels,
         "operator_complexity": solver.hierarchy.operator_complexity(),
@@ -233,8 +498,8 @@ def systems_phase(dim, rng, results, dev):
         "setup_peak_bytes": setup_peak, "solve_peak_bytes": solve_peak,
         "relres_host_fp64": relres, "relres_solver": res.relres,
         "converged": res.converged, "history": res.history,
-        "mv_from_level0": solver.mv_from_level0, "launches": launches}),
-        flush=True)
+        "mv_from_level0": solver.mv_from_level0, "launches": launches,
+        "launch_shapes": shapes}), flush=True)
     assert x.shape == (A.shape[0],) and np.isfinite(x).all()
     assert res.converged and relres <= 1e-8, (res, relres)
     # the JAX package's CPU counts; e2d's four passes sit at the fp32
@@ -296,7 +561,8 @@ def main(nside=192, dev="cuda"):
     print(f"build_s {time.perf_counter() - t0:.2f} {so}", flush=True)
 
     from sparsh_amg_tpu_torch import AMGSolver, flagship
-    from sparsh_amg_tpu_torch._host import get_lib, poisson3d
+    from sparsh_amg_tpu_torch._native import get_lib
+    from sparsh_amg_tpu_torch.models import poisson3d
     from sparsh_amg_tpu_torch.utils.meminfo import device_memory_stats
     from sparsh_amg_tpu_torch.ops.block_ell import csr_to_block_ell
     from sparsh_amg_tpu_torch.systems import random_blocks
@@ -326,6 +592,7 @@ def main(nside=192, dev="cuda"):
             block_case("random with holes", csr_to_block_ell(
                 random_blocks(700, bs, bs), bs, dt, device=dev), rng, small,
                 time_it=False)
+    long_row_cases(rng, small, dev)
 
     t0 = time.perf_counter()
     A = poisson3d(nside)
@@ -336,19 +603,20 @@ def main(nside=192, dev="cuda"):
     levels = solver.device.levels
     kinds = [(type(l.A).__name__, l.n, getattr(l.A, "k", None))
              for l in levels]
+    shapes = launch_shapes(levels)
     print(f"poisson3d({nside}) n={A.shape[0]} nnz={A.nnz} gen_s={gen_s:.2f} "
-          f"setup_s={solver.setup_time:.2f} levels={kinds}", flush=True)
+          f"setup_s={solver.setup_time:.2f} levels={kinds} "
+          f"launch_shapes={shapes}", flush=True)
     L0 = levels[0]
     assert isinstance(L0.A, DiaMatrix) and L0.A.bands.dtype == torch.bfloat16
     assert isinstance(L0.P, EllMatrix) and isinstance(L0.R, EllMatrix)
     assert isinstance(levels[1].A, EllMatrix)
     flag = []
     dia_cases("L0 Krylov operator", solver.A32.bands, solver.A32.offsets,
-              rng, flag, time_it=True)
+              rng, flag, time_it=True, n_rows=A.shape[0])
     dia_cases("L0 cycle operator", L0.A.bands, L0.A.offsets, rng, flag,
-              time_it=True)
-    for tag, M in (("P0", L0.P), ("R0", L0.R), ("A1", levels[1].A)):
-        ell_case(tag, M, rng, flag, time_it=True)
+              time_it=True, n_rows=A.shape[0])
+    operator_cases("", levels, rng, flag, timed={"P0", "R0", "A1"})
 
     # -- 4. the flagship solve ---------------------------------------------
     b = np.random.default_rng(0).standard_normal(A.shape[0])
@@ -360,8 +628,11 @@ def main(nside=192, dev="cuda"):
     solve_peak = device_memory_stats(dev).get("peak_bytes_in_use")
     x = res.x
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    repeats = [solver.solve(rhs).solve_time for _ in range(REPEATS)]
+    per_op = calls_per_operator(lambda: solver.solve(rhs), levels)
     stats = {
         "setup_s": solver.setup_time, "solve_s": res.solve_time,
+        "solve_s_repeats": repeats, "spmv_calls_per_operator": per_op,
         "iterations": res.iterations, "refine_passes": res.refine_passes,
         "jax_reference": flagship.REFERENCE_192,
         "levels": solver.hierarchy.n_levels,
@@ -370,7 +641,7 @@ def main(nside=192, dev="cuda"):
         "setup_peak_bytes": setup_peak, "solve_peak_bytes": solve_peak,
         "relres_host_fp64": relres, "relres_solver": res.relres,
         "converged": res.converged, "history": res.history,
-        "launches": launches}
+        "launches": launches, "launch_shapes": shapes}
     print(json.dumps(stats), flush=True)
     assert x.shape == (A.shape[0],) and np.isfinite(x).all()
     assert res.converged and relres <= 1e-8, (res, relres)
@@ -407,16 +678,26 @@ def main(nside=192, dev="cuda"):
     every = small + flag + sysk
     total = {k: sum(p[k] for p in paths) for k in launches}
 
+    keep = ("case", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by",
+            "library_ms", "library_bf16_ms", "library_note", "real_bytes",
+            "padded_bytes", "max_rel_err")
+
     def entry(name, source, cases, timed, replaces):
         errs = [c["max_abs_err"] for c in every
                 if c["case"].split()[0] in cases]
-        t = next(c for c in flag + sysk if c["case"].startswith(timed))
+        timed_cases = [c for c in flag + sysk
+                       if c["case"].split()[0] in cases and "ms" in c]
+        t = next(c for c in timed_cases if c["case"].startswith(timed))
         return {"name": name, "route": "cuda",
                 "source": f"sparsh_amg_tpu_torch/csrc/{source}",
                 "replaces": replaces,
                 "launches": sum(total[c] for c in cases),
                 "max_abs_err": max(errs), "ms": t["ms"],
-                "plain_ms": t["plain_ms"]}
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "case": t["case"],
+                "cases": [{k: c[k] for k in keep if k in c}
+                          for c in timed_cases]}
 
     fused = ("dia_residual", "dia_dinv_residual", "dia_jacobi_sweep",
              "dia_cheb_step")
@@ -428,10 +709,10 @@ def main(nside=192, dev="cuda"):
               "dia_cheb_step L0 cycle operator bf16",
               "sparsh_amg_tpu/ops/pallas_spmv.py:132"),
         entry("ell_spmv", "ell_spmv.cu", ("ell_spmv",), "ell_spmv R0",
-              "sparsh_amg_tpu/ops/gell.py:265"),
+              "sparsh_amg_tpu/ops/gell.py:266"),
         entry("block_ell_spmv", "block_ell_spmv.cu", ("block_ell_spmv",),
               "block_ell_spmv e3d L0 fp32",
-              "sparsh_amg_tpu/ops/block_gell.py:146"),
+              "sparsh_amg_tpu/ops/block_gell.py:147"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,29 @@
 """sparsh_amg_tpu_torch: the AMG solver of ``sparsh_amg_tpu`` on PyTorch and
 CUDA, for an NVIDIA H100.
 
-Host setup (``params``, ``models``, ``setup``, the native C++ kernels) is
-shared with the JAX package and imported through ``_host``; everything on
-the device is PyTorch, with hand-written CUDA kernels (``csrc/``) for the
-DIA and ELL sparse matrix-vector products that were Pallas kernels on the
-TPU.  The port imports no jax.
+Host setup (``params``, ``models``, ``setup``, the native C++ kernels in
+``_native``) is the port's own copy of the JAX package's framework-neutral
+numpy, scipy and C++ modules, file for file; everything on the device is
+PyTorch, with hand-written CUDA kernels (``csrc/``) for the DIA, ELL and
+block-ELL sparse matrix-vector products that were Pallas kernels on the
+TPU.  The port imports neither jax nor the JAX package.
 
 >>> from sparsh_amg_tpu_torch import AMGSolver
 >>> res = AMGSolver(A, params, krylov, device="cuda").solve(b)
 
 The exports load on first access, so importing the package builds nothing
-and imports neither the kernels nor the shared setup.
+and imports neither the kernels nor the setup.
 """
 from __future__ import annotations
 
 import importlib
+
+from ._native import tune_malloc as _tune_malloc
+
+# one-time heap tuning (see _native.tune_malloc).  It is process-global:
+# a process that imports the JAX package as well runs it twice, which sets
+# the same two mallopt values again and is harmless.
+_tune_malloc()
 
 __version__ = "0.1.0"
 

@@ -1,6 +1,7 @@
 """Builds and loads the package's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  At first use one
+The sources under ``csrc/`` have a plain C interface (headers ``*.cuh``
+are shared between them and enter the hash).  At first use one
 ``nvcc`` per source compiles it for Hopper (``sm_90a``), all started
 together, and one more links the objects into a shared library, keyed by a
 hash of the sources and flags, in ``_build/`` next to this file; the
@@ -30,21 +31,32 @@ _p = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 
-# C entry points: (name, argtypes).  Each returns cudaGetLastError().
+# C entry points: (name, argtypes).  Each launcher returns
+# cudaGetLastError().
 _ENTRIES = {
     # band_bf16, tail, bands, n_bands, offsets (host int[n_bands]), n_pad,
     # v, b, dinv, x, s0, s1, y0, y1, y2, stream
     "dia_fused_launch": [_i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _f, _f,
                          _p, _p, _p, _p],
-    # val_bf16, cols, vals, k, n_pad, x, y, stream
-    "ell_spmv_launch": [_i, _p, _p, _i, _i, _p, _p, _p],
-    # val_bf16, bs, cols, vals, kn, n, n_pad, x, y, stream
-    "block_ell_spmv_launch": [_i, _i, _p, _p, _i, _i, _i, _p, _p, _p],
+    # val_bf16, cols, vals, lens, k, n_rows, n_pad, lanes, cluster, x, y,
+    # stream
+    "ell_spmv_launch": [_i, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],
+    # val_bf16, bs, cols, vals, lens, kn, n, n_pad, lanes, cluster, x, y,
+    # stream
+    "block_ell_spmv_launch": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _i, _p,
+                              _p, _p],
+    # the split-row launch's limits (csrc/split_rows.cuh); no CUDA call
+    "split_max_lanes": [],
+    "split_max_cluster": [],
 }
 
 
 def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def nvcc_path() -> str:
@@ -60,7 +72,7 @@ def build() -> str:
     return its path.  Raises RuntimeError with nvcc's output on failure."""
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + headers():
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())

@@ -6,7 +6,7 @@ in 2 refinement passes at relres 9.38e-10, with 5 levels at operator
 complexity 1.223 (BENCH_r05.json)."""
 from __future__ import annotations
 
-from ._host import AMGParams, KrylovParams
+from .params import AMGParams, KrylovParams
 
 REFERENCE_192 = {"iterations": 12, "refine_passes": 2, "relres": 9.38e-10,
                  "levels": 5, "operator_complexity": 1.223}

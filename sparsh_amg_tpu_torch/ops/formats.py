@@ -6,7 +6,8 @@ Host CSR matrices are frozen at setup into one of three padded layouts:
 * DIA: ``bands (D, n_pad)`` with ``bands[d, i] = A[i, i + offsets[d]]``;
   stencil levels.  SpMV and its fused tails run in ``ops/dia_spmv.py``.
 * ELL-T: ``cols``/``vals`` of shape ``(K, n_pad)``, padding slots val 0,
-  col 0; every irregular operator (P, R, coarse A).  ``ops/ell_spmv.py``.
+  col 0, and the row lengths ``lens (n_pad,)`` (0 on padding rows); every
+  irregular operator (P, R, coarse A).  ``ops/ell_spmv.py``.
 * Dense: small levels, a plain matrix-vector product.
 
 The host tables come from the same native fillers as the JAX package;
@@ -21,7 +22,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-from .._host import csr_arrays, get_lib
+from .._native import csr_arrays, get_lib
 from .dia_spmv import dia_residual, dia_spmv
 from .ell_spmv import ell_spmv
 
@@ -49,9 +50,11 @@ class DiaMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class EllMatrix:
-    """Transposed-ELL storage: cols/vals (K, n_pad); pad entries val=0,col=0."""
+    """Transposed-ELL storage: cols/vals (K, n_pad); pad entries val=0,col=0;
+    lens[i] the slots of row i in use (0 on padding rows)."""
     cols: torch.Tensor        # (K, n_pad) int32
     vals: torch.Tensor        # (K, n_pad)
+    lens: torch.Tensor        # (n_pad,) int32
     n_rows: int
     n_cols: int
 
@@ -68,7 +71,7 @@ class EllMatrix:
         if x.shape[0] < self.n_cols:
             raise ValueError(f"x has {x.shape[0]} entries, the matrix "
                              f"{self.n_cols} columns")
-        return ell_spmv(self.cols, self.vals, x)
+        return ell_spmv(self.cols, self.vals, self.lens, x, self.n_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,11 +166,14 @@ def csr_to_dia(A: sp.csr_matrix, dtype=torch.float32, pad_multiple: int = 128,
 
 
 def ell_tables(A: sp.csr_matrix, pad_multiple: int, vals_dtype=np.float32):
-    """Host ELL-T tables (cols int32, vals) of shape (K, n_pad)."""
+    """Host ELL-T tables (cols int32, vals) of shape (K, n_pad) and the row
+    lengths (n_pad,) int32, 0 on padding rows."""
     n, m = A.shape
     nnz_per_row = np.diff(A.indptr)
     K = max(int(nnz_per_row.max()) if n > 0 else 0, 1)
     n_pad = _round_up(max(n, 1), pad_multiple)
+    lens = np.zeros(n_pad, dtype=np.int32)
+    lens[:n] = nnz_per_row
     lib = get_lib()
     if lib is not None and A.nnz >= (1 << 16) and vals_dtype == np.float32:
         # block-tiled parallel fill (the numpy scatter below takes seconds
@@ -177,7 +183,7 @@ def ell_tables(A: sp.csr_matrix, pad_multiple: int, vals_dtype=np.float32):
         vals = np.empty((K, n_pad), dtype=np.float32)
         lib.ell_fill_f32(n, n_pad, K, indptr, indices, data,
                          cols.reshape(-1), vals.reshape(-1))
-        return cols, vals
+        return cols, vals, lens
     cols = np.zeros((K, n_pad), dtype=np.int32)
     vals = np.zeros((K, n_pad), dtype=vals_dtype)
     rows = np.repeat(np.arange(n, dtype=np.int64), nnz_per_row)
@@ -186,14 +192,15 @@ def ell_tables(A: sp.csr_matrix, pad_multiple: int, vals_dtype=np.float32):
         A.indptr[:-1].astype(np.int64), nnz_per_row)
     cols[slot, rows] = A.indices
     vals[slot, rows] = A.data
-    return cols, vals
+    return cols, vals, lens
 
 
 def csr_to_ell(A: sp.csr_matrix, dtype=torch.float32, pad_multiple: int = 128,
                *, device) -> EllMatrix:
-    cols, vals = ell_tables(A, pad_multiple)
+    cols, vals, lens = ell_tables(A, pad_multiple)
     return EllMatrix(cols=_upload(cols, device, torch.int32),
                      vals=_upload(vals, device, dtype),
+                     lens=_upload(lens, device, torch.int32),
                      n_rows=A.shape[0], n_cols=A.shape[1])
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .._host import csr_arrays, get_lib
+from .._native import csr_arrays, get_lib
 from .dia_spmv import dia_plain
 from .ell_spmv import ell_plain
 from .formats import (DiaMatrix, EllMatrix, _round_up, _upload, dia_offsets,
@@ -58,9 +58,10 @@ def csr_to_fp64(A: sp.csr_matrix, prefer_dia: bool = True,
                          n_rows=n, n_cols=m)
     split = A.copy()
     split.data = _hi_lo(A.data)
-    cols, vals = ell_tables(split, pad_multiple, vals_dtype=np.float64)
+    cols, vals, lens = ell_tables(split, pad_multiple, vals_dtype=np.float64)
     return EllMatrix(cols=_upload(cols, device, torch.int32),
                      vals=_upload(vals, device, torch.float64),
+                     lens=_upload(lens, device, torch.int32),
                      n_rows=n, n_cols=m)
 
 

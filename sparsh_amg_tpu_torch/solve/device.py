@@ -16,10 +16,12 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
-from .._host import AMGParams, Hierarchy, csr_arrays, get_lib
+from .._native import csr_arrays, get_lib
 from ..ops.block_ell import BlockEllMatrix, csr_to_block_ell
 from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, _round_up,
                            csr_to_dense, csr_to_device, csr_to_ell)
+from ..params import AMGParams
+from ..setup.hierarchy import Hierarchy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,6 +333,14 @@ def _block_gell_csr(M) -> sp.csr_matrix:
                        np.concatenate(vals), (M.n_rows, M.n_cols))
 
 
+def _ell_lengths(vals) -> np.ndarray:
+    """Row lengths of an ELL-T table (K, n_pad) whose padding slots hold 0:
+    the last nonzero slot of each row + 1, 0 for a row with none."""
+    nz = np.asarray(vals).astype(np.float32) != 0
+    last = nz.shape[0] - np.argmax(nz[::-1], axis=0)
+    return np.where(nz.any(axis=0), last, 0).astype(np.int32)
+
+
 def _layout_from_jax(M, device):
     if M is None:
         return None
@@ -340,7 +350,8 @@ def _layout_from_jax(M, device):
                          M.n_rows, M.n_cols)
     if kind == "EllMatrix":
         return EllMatrix(_tensor(M.cols, device), _tensor(M.vals, device),
-                         M.n_rows, M.n_cols)
+                         _tensor(_ell_lengths(M.vals), device), M.n_rows,
+                         M.n_cols)
     if kind == "DenseMatrix":
         return DenseMatrix(_tensor(M.mat, device), M.n_rows, M.n_cols,
                            M.out_pad)

@@ -17,12 +17,13 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .._host import AMGParams, Hierarchy, KrylovParams, amg_setup, \
-    maybe_reorder
 from ..ops.blas import dot as _blas_dot
 from ..ops.block_ell import BlockEllMatrix
 from ..ops.formats import EllMatrix, spmv
 from ..ops.fp64 import csr_to_fp64, residual64, to_fp32
+from ..params import AMGParams, KrylovParams
+from ..setup.hierarchy import Hierarchy, amg_setup
+from ..setup.reorder import maybe_reorder
 from .cycles import make_cycle
 from .device import DeviceHierarchy, _torch_dtype, to_device
 from .krylov import pcg_init, pcg_step

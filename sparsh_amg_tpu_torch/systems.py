@@ -19,9 +19,9 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from ._host import (AMGParams, KrylovParams, elasticity2d,
-                    elasticity2d_nullspace, elasticity3d,
-                    elasticity3d_nullspace)
+from .models.elasticity import (elasticity2d, elasticity2d_nullspace,
+                                elasticity3d, elasticity3d_nullspace)
+from .params import AMGParams, KrylovParams
 
 SIZES = {2: 512, 3: 40}
 
@@ -56,6 +56,25 @@ def random_blocks(nb: int, bs: int, seed: int, density: float = 0.02):
     A = sp.kron(P, np.ones((bs, bs))).tocsr()
     A.data = rng.standard_normal(A.nnz) * (rng.random(A.nnz) > 0.3)
     A.eliminate_zeros()
+    return A
+
+
+def random_long_rows(rows: int, cols: int, max_len: int, seed: int,
+                     bs: int = 1):
+    """A random matrix of rows x cols entries (bs x bs dense blocks where
+    bs > 1) whose rows hold 0 to max_len entries (blocks) each at distinct
+    columns, lengths uniform, one row at max_len: the check case of the
+    split-row launch, with empty rows and rows far shorter than K."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, rows)
+    lens[rng.integers(rows)] = max_len
+    indices = np.concatenate(
+        [np.sort(rng.permutation(cols)[:n]) for n in lens]).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    P = sp.csr_matrix((np.ones(indices.size), indices, indptr),
+                      shape=(rows, cols))
+    A = sp.kron(P, np.ones((bs, bs))).tocsr() if bs > 1 else P
+    A.data = rng.standard_normal(A.nnz)
     return A
 
 

@@ -17,6 +17,7 @@ JAX package, on the CPU.
 
 Tolerance: normwise rtol 1e-5 (the same fp32 values, summed in another
 order)."""
+import dataclasses
 import functools
 
 import numpy as np
@@ -30,7 +31,7 @@ from sparsh_amg_tpu.models.elasticity import elasticity2d, elasticity3d
 from sparsh_amg_tpu.ops.block_gell import (_block_gather_xla,
                                            block_gell_pallas,
                                            csr_to_block_gell)
-from sparsh_amg_tpu.params import KrylovParams
+from sparsh_amg_tpu import params as jparams
 from sparsh_amg_tpu.setup.hierarchy import amg_setup
 from sparsh_amg_tpu.solve import cycles as jcycles
 from sparsh_amg_tpu.solve import device as jdevice
@@ -55,12 +56,18 @@ def _close(got, want, rtol=RTOL):
                                atol=rtol * np.abs(want).max())
 
 
+def _jax(p):
+    """The JAX package's AMGParams from the port's params' keywords."""
+    return jparams.AMGParams(**dataclasses.asdict(p))
+
+
 @functools.lru_cache(maxsize=None)
 def _hierarchy(dim, m, dense_size):
+    """(A, nullspace, the port's params, the JAX package's hierarchy)."""
     A, ns = systems.problem(dim, m)
     A = A.tocsr()
     p = systems.params(dim, dense_size=dense_size)
-    return A, ns, p, amg_setup(A, p, nullspace=ns)
+    return A, ns, p, amg_setup(A, _jax(p), nullspace=ns)
 
 
 MATRICES = {
@@ -109,7 +116,7 @@ def test_block_plain_matches_block_gell_pallas(mat, dt):
                             _planes(B, x), s=B.s, tr=B.tr, wmode=B.wmode,
                             bs=B.bs, interpret=True)
     want = _reduce(B, np.asarray(out).transpose(1, 0, 2, 3).reshape(B.bs, -1))
-    got = block_ell_plain(M.cols, M.vals, torch.from_numpy(x))
+    got = block_ell_plain(M.cols, M.vals, torch.from_numpy(x), M.lens)
     assert got.dtype == torch.float32 and got.shape == (M.n_pad,)
     _close(got[: A.shape[0]], want)
     assert not got[A.shape[0]:].any()
@@ -132,24 +139,88 @@ def test_block_wrapper_on_cpu_counts_nothing_and_checks():
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         M.n_pad).astype(np.float32))
     before = block_ell_spmv.launches
-    torch.testing.assert_close(block_ell_spmv(M.cols, M.vals, x),
-                               block_ell_plain(M.cols, M.vals, x),
+    torch.testing.assert_close(block_ell_spmv(M.cols, M.vals, M.lens, x),
+                               block_ell_plain(M.cols, M.vals, x, M.lens),
                                rtol=0, atol=0)
     assert block_ell_spmv.launches == before
     with pytest.raises(ValueError):
-        block_ell_spmv(M.cols.long(), M.vals, x)
+        block_ell_spmv(M.cols.long(), M.vals, M.lens, x)
     with pytest.raises(ValueError):
-        block_ell_spmv(M.cols, M.vals.double(), x)
+        block_ell_spmv(M.cols, M.vals.double(), M.lens, x)
     with pytest.raises(ValueError):
-        block_ell_spmv(M.cols, M.vals, x.double())
+        block_ell_spmv(M.cols, M.vals, M.lens, x.double())
+    with pytest.raises(ValueError):
+        block_ell_spmv(M.cols, M.vals, M.lens[1:], x)
     with pytest.raises(ValueError):           # no kernel for 1x1 blocks
-        block_ell_spmv(M.cols, M.vals[:, :1].contiguous(), x)
+        block_ell_spmv(M.cols, M.vals[:, :1].contiguous(), M.lens, x)
     with pytest.raises(ValueError):
-        BlockEllMatrix(M.cols, M.vals, M.n_rows, M.n_cols).spmv(x[:10])
+        BlockEllMatrix(M.cols, M.vals, M.lens, M.n_rows,
+                       M.n_cols).spmv(x[:10])
     # rows that do not split into blocks, or a block size with no kernel
     # instance: no block layout, as the JAX packer's None
     assert csr_to_block_ell(A[:-1, :-1], bs, device="cpu") is None
     assert csr_to_block_ell(sp.eye(14, format="csr"), 7, device="cpu") is None
+
+
+def _holed(bs):
+    """random_blocks with node rows 0 and 3 emptied (no block at all)."""
+    A = systems.random_blocks(40, bs, 2, 0.1).tolil()
+    for node in (0, 3):
+        A[node * bs:(node + 1) * bs, :] = 0
+    A = A.tocsr()
+    A.eliminate_zeros()
+    return A
+
+
+@pytest.mark.parametrize("bs", [2, 3, 6])
+def test_block_tables_row_lengths(bs):
+    """lens counts each node row's blocks (0 for an empty node row), and
+    no slot past it holds anything."""
+    A = _holed(bs)
+    M = csr_to_block_ell(A, bs, device="cpu")
+    want = np.diff(A.tobsr(blocksize=(bs, bs)).indptr)
+    lens = M.lens.numpy()
+    assert lens.dtype == np.int32 and lens.shape == (M.cols.shape[1],)
+    np.testing.assert_array_equal(lens, want)
+    assert lens[0] == lens[3] == 0 and lens.max() == M.k
+    past = np.arange(M.k)[:, None] >= lens[None, :]
+    assert not M.cols.numpy()[past].any()
+    vals = M.vals.numpy()[:, :, : M.n_rows].reshape(M.k, bs, -1, bs)
+    assert not vals.transpose(0, 2, 1, 3)[past].any()
+    assert not M.vals.numpy()[:, :, M.n_rows:].any()     # padding rows
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("bs", [2, 3, 6])
+def test_block_plain_with_lens_equals_plain(bs, dt):
+    M = csr_to_block_ell(_holed(bs), bs, DTYPES[dt][0], device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        M.n_pad).astype(np.float32))
+    got = block_ell_plain(M.cols, M.vals, x, M.lens)
+    assert torch.equal(got, block_ell_plain(M.cols, M.vals, x))
+    assert not got[:bs].any() and not got[3 * bs: 4 * bs].any()  # empty
+    assert not got[M.n_rows:].any()
+
+
+@pytest.mark.parametrize("prob", PROBLEMS)
+def test_hierarchy_from_jax_row_lengths(prob, monkeypatch):
+    """hierarchy_from_jax sets lens on every ELL-T and block level, from
+    the decoded TPU layouts, as to_device does from the host CSR."""
+    monkeypatch.setenv("SPARSH_FORCE_GELL", "1")
+    A, ns, p, hier = _hierarchy(*PROBLEMS[prob])
+    T = device.hierarchy_from_jax(jdevice.to_device(hier, _jax(p)),
+                                  device="cpu")
+    H = to_device(hier, p, device="cpu")
+    seen = set()
+    for lt, lh in zip(T.levels, H.levels):
+        for f in ("A", "P", "R"):
+            mt, mh = getattr(lt, f), getattr(lh, f)
+            if not hasattr(mt, "lens"):
+                continue
+            seen.add(type(mt).__name__)
+            assert type(mt) is type(mh), f
+            np.testing.assert_array_equal(mt.lens.numpy(), mh.lens.numpy())
+    assert seen == {"EllMatrix", "BlockEllMatrix"}
 
 
 def _decoded(M):
@@ -168,7 +239,7 @@ def _fp32_csr(A):
 def test_to_device_picks_block_layout_as_jax(prob, monkeypatch):
     monkeypatch.setenv("SPARSH_FORCE_GELL", "1")
     A, ns, p, hier = _hierarchy(*PROBLEMS[prob])
-    J = jdevice.to_device(hier, p)
+    J = jdevice.to_device(hier, _jax(p))
     T = to_device(hier, p, device="cpu")
     jk = [type(l.A).__name__ for l in J.levels]
     tk = [type(l.A).__name__ for l in T.levels]
@@ -189,7 +260,7 @@ def test_decoded_tpu_layouts_hold_the_host_values(prob, monkeypatch):
     fp32 values."""
     monkeypatch.setenv("SPARSH_FORCE_GELL", "1")
     A, ns, p, hier = _hierarchy(*PROBLEMS[prob])
-    J = jdevice.to_device(hier, p)
+    J = jdevice.to_device(hier, _jax(p))
     seen = set()
     for lev, lj in zip(hier.levels, J.levels):
         for f in ("A", "P", "R"):
@@ -211,14 +282,14 @@ def test_vcycle_matches_jax_on_identical_data(prob, band_dtype, monkeypatch):
     monkeypatch.setenv("SPARSH_FORCE_GELL", "1")
     A, ns, p, hier = _hierarchy(*PROBLEMS[prob])
     p = p.replace(band_dtype=band_dtype)
-    J = jdevice.to_device(hier, p)
+    J = jdevice.to_device(hier, _jax(p))
     T = device.hierarchy_from_jax(J, device="cpu")
     assert [type(l.A).__name__ == "BlockGellMatrix" for l in J.levels] == \
         [isinstance(l.A, BlockEllMatrix) for l in T.levels]
     n_pad = T.levels[0].n_pad
     b = np.zeros(n_pad, np.float32)
     b[: A.shape[0]] = np.random.default_rng(0).standard_normal(A.shape[0])
-    want = jax.jit(jcycles.make_cycle(p))(J.levels, jnp.asarray(b))
+    want = jax.jit(jcycles.make_cycle(_jax(p)))(J.levels, jnp.asarray(b))
     got = cycles.make_cycle(p)(T.levels, torch.from_numpy(b))
     _close(got, want)
 
@@ -231,10 +302,9 @@ def test_systems_solve_matches_jax(prob, monkeypatch):
     dim, m, dense_size = PROBLEMS[prob]
     A, ns, p, _ = _hierarchy(dim, m, dense_size)
     b = np.random.default_rng(0).standard_normal(A.shape[0])
-    ref_solver = JaxSolver(A, p, KrylovParams(method="cg", tol=1e-8,
-                                              maxiter=300,
-                                              loop_mode="device"),
-                           nullspace=ns)
+    ref_solver = JaxSolver(A, _jax(p), jparams.KrylovParams(
+        method="cg", tol=1e-8, maxiter=300, loop_mode="device"),
+        nullspace=ns)
     solver = AMGSolver(A, p, systems.krylov(), nullspace=ns, device="cpu")
     results = []
     for s in (ref_solver, solver):
@@ -265,9 +335,9 @@ def test_krylov_matvec_goes_through_block_operator(monkeypatch):
     calls = {"L0": 0, "cycles": 0}
     real_spmv, real_cycle = block_ell_spmv, solver._cycle
 
-    def spmv(cols, vals, x):
+    def spmv(cols, vals, lens, x):
         calls["L0"] += cols is L0.cols
-        return real_spmv(cols, vals, x)
+        return real_spmv(cols, vals, lens, x)
 
     def cycle(levels, r):
         calls["cycles"] += 1

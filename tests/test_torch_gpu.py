@@ -32,7 +32,7 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dia_kernel_tails_match_plain(cuda, dtype):
-    from sparsh_amg_tpu_torch._host import poisson3d
+    from sparsh_amg_tpu_torch.models import poisson3d
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
     from sparsh_amg_tpu_torch.ops.formats import csr_to_dia
     D = csr_to_dia(poisson3d(20), dtype, 2048, device=cuda)
@@ -70,7 +70,7 @@ def test_ell_kernel_matches_plain(cuda, dtype):
     E = csr_to_ell(A, dtype, 2048, device=cuda)
     x = _vec(np.random.default_rng(1), A.shape[1], cuda)
     before = ell_spmv.launches
-    got = ell_spmv(E.cols, E.vals, x)
+    got = ell_spmv(E.cols, E.vals, E.lens, x, E.n_rows)
     torch.cuda.synchronize()
     assert _rel(got, ell_plain(E.cols, E.vals, x)) <= 1e-5
     assert ell_spmv.launches == before + 1
@@ -86,7 +86,7 @@ def test_block_kernel_matches_plain(cuda, bs, dtype):
     M = csr_to_block_ell(random_blocks(700, bs, bs), bs, dtype, device=cuda)
     x = _vec(np.random.default_rng(1), M.n_pad, cuda)
     before = block_ell_spmv.launches
-    got = block_ell_spmv(M.cols, M.vals, x)
+    got = block_ell_spmv(M.cols, M.vals, M.lens, x)
     torch.cuda.synchronize()
     assert _rel(got, block_ell_plain(M.cols, M.vals, x)) <= 1e-5
     assert not got[M.n_rows:].any()
@@ -103,7 +103,64 @@ def test_wrappers_raise_on_mixed_devices(cuda):
         K.dia_spmv(bands, torch.ones(2048, device=cuda).double(), (0,))
     cols = torch.zeros(2, 682, dtype=torch.int32, device=cuda)
     vals = torch.ones(2, 3, 2048, device=cuda)
+    lens = torch.full((682,), 2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        block_ell_spmv(cols, vals, torch.ones(2048))
+        block_ell_spmv(cols, vals, lens, torch.ones(2048))
     with pytest.raises(ValueError):
-        block_ell_spmv(cols.cpu(), vals, torch.ones(2048, device=cuda))
+        block_ell_spmv(cols.cpu(), vals, lens, torch.ones(2048, device=cuda))
+    with pytest.raises(ValueError):
+        block_ell_spmv(cols, vals, lens.cpu(), torch.ones(2048, device=cuda))
+
+
+# (rows, columns, longest row): fewer than 32 rows, rows not a multiple of
+# 32, and launches of (32, 8), (32, 8), (32, 4), (16, 1), (2, 1), (4, 1)
+# and (8, 1) lanes x cluster blocks from the chooser on an H100
+LONG_ELL = [(20, 4000, 3000), (77, 5000, 3000), (2000, 3500, 1500),
+            (10000, 12000, 250), (1000, 1500, 20), (1000, 1500, 40),
+            (1000, 1500, 100)]
+# (node rows, node columns, longest node row) per block size: (32, 1),
+# (32, 4), (16, 1), (2, 1), (4, 1) and (8, 1)-shaped launches
+LONG_BLOCK = [(10, 600, 450), (15, 2500, 2000), (700, 900, 200),
+              (100, 150, 20), (100, 150, 40), (100, 150, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LONG_ELL)
+def test_ell_kernel_long_rows(cuda, shape, dtype):
+    """Split rows (lanes and clusters) against the plain version; two
+    launches give identical bits."""
+    from sparsh_amg_tpu_torch.ops.ell_spmv import ell_plain, ell_spmv
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_ell
+    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    from sparsh_amg_tpu_torch.systems import random_long_rows
+    A = random_long_rows(*shape, seed=5)
+    E = csr_to_ell(A, dtype, 2048, device=cuda)
+    assert E.k == shape[2] and launch_shape(E.n_rows, E.k, cuda) != (1, 1)
+    x = _vec(np.random.default_rng(2), A.shape[1], cuda)
+    got = ell_spmv(E.cols, E.vals, E.lens, x, E.n_rows)
+    again = ell_spmv(E.cols, E.vals, E.lens, x, E.n_rows)
+    torch.cuda.synchronize()
+    assert _rel(got, ell_plain(E.cols, E.vals, x)) <= 1e-5
+    assert torch.equal(got, again)
+    assert not got[E.n_rows:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LONG_BLOCK)
+@pytest.mark.parametrize("bs", [2, 3, 6])
+def test_block_kernel_long_rows(cuda, bs, shape, dtype):
+    from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
+                                                    block_ell_spmv,
+                                                    csr_to_block_ell)
+    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    from sparsh_amg_tpu_torch.systems import random_long_rows
+    A = random_long_rows(*shape, seed=6, bs=bs)
+    M = csr_to_block_ell(A, bs, dtype, device=cuda)
+    assert M.k == shape[2] and launch_shape(M.n_rows, M.k, cuda) != (1, 1)
+    x = _vec(np.random.default_rng(3), max(M.n_pad, M.n_cols), cuda)
+    got = block_ell_spmv(M.cols, M.vals, M.lens, x)
+    again = block_ell_spmv(M.cols, M.vals, M.lens, x)
+    torch.cuda.synchronize()
+    assert _rel(got, block_ell_plain(M.cols, M.vals, x)) <= 1e-5
+    assert torch.equal(got, again)
+    assert not got[M.n_rows:].any()

@@ -1,14 +1,16 @@
-"""The port works where jax is not installed (the GPU machine): a fresh
-interpreter with jax blocked imports the port and solves on the CPU, and
-no module of the port imports jax."""
+"""The port stands alone where jax is not installed (the GPU machine): a
+fresh interpreter with jax blocked imports the port and solves on the CPU
+without loading any module of the JAX package, and no module of the port
+imports jax or the JAX package."""
 import ast
+import dataclasses
 import json
 import os
 import pathlib
 import subprocess
 import sys
 
-import sparsh_amg_tpu
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "sparsh_amg_tpu_torch"
@@ -18,7 +20,7 @@ import json, sys
 sys.modules["jax"] = None              # import jax now raises ImportError
 import numpy as np
 from sparsh_amg_tpu_torch import AMGSolver, flagship, systems
-from sparsh_amg_tpu_torch._host import poisson3d
+from sparsh_amg_tpu_torch.models import poisson3d
 if sys.argv[1] == "flagship":
     A, ns = poisson3d(16), None
     p, kr = flagship.params(dense_size=256), flagship.krylov()
@@ -28,7 +30,6 @@ else:                                  # smoothed aggregation, 3 dofs/node
 b = np.random.default_rng(0).standard_normal(A.shape[0])
 solver = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
 res = solver.solve(b)
-import sparsh_amg_tpu
 print(json.dumps({
     "converged": res.converged, "iterations": res.iterations,
     "passes": res.refine_passes,
@@ -37,7 +38,8 @@ print(json.dumps({
     "jax_modules": sorted(m for m in sys.modules
                           if m.split(".")[0] in ("jax", "jaxlib")
                           and sys.modules[m] is not None),
-    "real_package_init_ran": hasattr(sparsh_amg_tpu, "AMGSolver"),
+    "jax_package_modules": sorted(m for m in sys.modules
+                                  if m.split(".")[0] == "sparsh_amg_tpu"),
 }))
 """
 
@@ -49,7 +51,8 @@ def _solve_without_jax(which):
     assert out.returncode == 0, out.stderr[-4000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["converged"] and got["relres"] <= 1e-8, got
-    assert got["jax_modules"] == [] and not got["real_package_init_ran"]
+    assert got["jax_modules"] == [], got
+    assert got["jax_package_modules"] == [], got
     return got
 
 
@@ -67,6 +70,8 @@ def test_systems_solve_without_jax():
 
 
 def _imports(path):
+    """Absolute module names a file imports (relative imports stay inside
+    their own package)."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
@@ -75,21 +80,30 @@ def _imports(path):
 
 
 def test_no_port_module_imports_jax():
+    """Neither jax nor the JAX package (any import rooted at
+    sparsh_amg_tpu), in every module of the port and in chip_smoke.py."""
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 15
+    assert len(files) >= 30
+    assert not (PORT / "_host.py").exists()
     for f in files:
         bad = [m for m in _imports(f)
-               if m.split(".")[0] in ("jax", "jaxlib")]
+               if m.split(".")[0] in ("jax", "jaxlib", "sparsh_amg_tpu")]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
-def test_real_package_kept_when_jax_present():
-    """With jax installed the port imports the real JAX package, so a later
-    JAX test in the same worker still finds its full namespace."""
-    import sparsh_amg_tpu_torch._host  # noqa: F401
-    assert hasattr(sparsh_amg_tpu, "AMGSolver")
-    from sparsh_amg_tpu import AMGParams
-    from sparsh_amg_tpu_torch._host import AMGParams as Shared
-    assert Shared is AMGParams
+@pytest.mark.parametrize("name", ["AMGParams", "KrylovParams"])
+def test_port_params_match_jax_params(name):
+    """The port's copy of params.py has the JAX package's fields, defaults
+    and types, so one set of keywords configures both."""
+    from sparsh_amg_tpu import params as jparams
+    from sparsh_amg_tpu_torch import params as tparams
+    mine, ref = getattr(tparams, name), getattr(jparams, name)
+    assert mine is not ref
+
+    def fields(cls):
+        return [(f.name, f.type, f.default, f.default_factory)
+                for f in dataclasses.fields(cls)]
+    assert fields(mine) == fields(ref)
+    assert dataclasses.asdict(mine()) == dataclasses.asdict(ref())

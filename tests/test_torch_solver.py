@@ -16,12 +16,13 @@ import jax.numpy as jnp
 import torch
 
 from sparsh_amg_tpu.models.poisson import poisson2d, poisson3d
-from sparsh_amg_tpu.params import AMGParams, KrylovParams
+from sparsh_amg_tpu import params as jparams
 from sparsh_amg_tpu.setup.hierarchy import amg_setup
 from sparsh_amg_tpu.solve import cycles as jcycles
 from sparsh_amg_tpu.solve import device as jdevice
 from sparsh_amg_tpu.solve.solver import AMGSolver as JaxSolver
 from sparsh_amg_tpu_torch import AMGSolver, flagship, to_device
+from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
 from sparsh_amg_tpu_torch.solve import cycles, device
 from sparsh_amg_tpu_torch.utils.meminfo import tree_device_bytes
 
@@ -32,6 +33,11 @@ def _close(got, want, rtol=RTOL):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     np.testing.assert_allclose(got, want, rtol=rtol,
                                atol=rtol * np.abs(want).max())
+
+
+def _jax(p):
+    """The JAX package's AMGParams from the port's params' keywords."""
+    return jparams.AMGParams(**dataclasses.asdict(p))
 
 
 def _deep_params(**kw):
@@ -58,8 +64,8 @@ def _np(t):
 @pytest.mark.parametrize("band_dtype", ["float32", "bfloat16"])
 def test_to_device_matches_jax(band_dtype):
     p = _deep_params(band_dtype=band_dtype)
-    hier = amg_setup(poisson3d(20), p)
-    J = jdevice.to_device(hier, p)
+    hier = amg_setup(poisson3d(20), _jax(p))
+    J = jdevice.to_device(hier, _jax(p))
     T = to_device(hier, p, device="cpu")
     assert T.n_levels == J.n_levels == 4
     for lj, lt in zip(J.levels, T.levels):
@@ -102,8 +108,9 @@ def test_dia_diag_stats_matches_jax():
 def test_cycle_matches_jax_on_identical_data(shape, smoother, coarse_solver):
     p = _deep_params(band_dtype="float32", cycle=shape, smoother=smoother,
                      coarse_solver=coarse_solver)
-    hier = amg_setup(poisson3d(20), p)
-    J = jdevice.to_device(hier, p)
+    jp = _jax(p)
+    hier = amg_setup(poisson3d(20), jp)
+    J = jdevice.to_device(hier, jp)
     T = device.hierarchy_from_jax(J, device="cpu")
     assert [type(l.A).__name__ for l in T.levels] == \
         ["DiaMatrix", "EllMatrix", "EllMatrix", "DenseMatrix"]
@@ -111,13 +118,14 @@ def test_cycle_matches_jax_on_identical_data(shape, smoother, coarse_solver):
     b = np.zeros(n_pad, np.float32)
     b[: hier.levels[0].n] = np.random.default_rng(0).standard_normal(
         hier.levels[0].n)
-    jcyc = jax.jit(jcycles.make_cycle(p))
+    jp = _jax(p)
+    jcyc = jax.jit(jcycles.make_cycle(jp))
     want = jcyc(J.levels, jnp.asarray(b))
     got = cycles.make_cycle(p)(T.levels, torch.from_numpy(b))
     _close(got, want)
     # from a nonzero start too (the pre-smoother's fused residual path)
     x0 = (0.1 * b).astype(np.float32)
-    want = jax.jit(lambda lv, r, x: jcycles._cycle(lv, 0, r, x, p, shape))(
+    want = jax.jit(lambda lv, r, x: jcycles._cycle(lv, 0, r, x, jp, shape))(
         J.levels, jnp.asarray(b), jnp.asarray(x0))
     got = cycles._cycle(T.levels, 0, torch.from_numpy(b),
                         torch.from_numpy(x0), p, shape)
@@ -141,7 +149,8 @@ def test_flagship_solve_matches_jax(prob):
     A = PROBLEMS[prob]().tocsr()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     p = flagship.params(dense_size=256)
-    ref = JaxSolver(A, p, KrylovParams(loop_mode="device")).solve(b)
+    ref = JaxSolver(A, _jax(p), jparams.KrylovParams(
+        loop_mode="device")).solve(b)
     solver = AMGSolver(A, p, flagship.krylov(), device="cpu")
     res = solver.solve(b)
     assert (solver.perm is None) == (prob != "permuted poisson2d(40)")
