@@ -11,11 +11,12 @@ Phases (any failure raises, and the script exits non-zero):
   3. every kernel entry against its plain PyTorch version on the card, at a
      small size, on random long-row matrices (every split-row launch
      shape; two launches must give the same bits) and at the flagship's
-     shapes (the DIA operators and every ELL-T operator of the hierarchy,
-     each at the launch shape the solve gives it): max errors, median
-     device times, the least time the card could take (bound_ms) and the
-     time of one PyTorch call computing the same function (library_ms: a
-     cuSPARSE CSR SpMV, which the port never calls);
+     shapes (the DIA operators, every tail with the same bits twice and
+     the instantiation and halo it ran, and every ELL-T operator of the
+     hierarchy, each at the launch shape the solve gives it): max errors,
+     median device times, the least time the card could take (bound_ms)
+     and the time of one PyTorch call computing the same function
+     (library_ms: a cuSPARSE CSR SpMV, which the port never calls);
   4. the flagship solve, poisson3d(192) (7,077,888 unknowns), through
      AMGSolver, with kernel launch counts from that solve, the residual
      recomputed on the host in fp64, and a small solve on the card held
@@ -23,7 +24,9 @@ Phases (any failure raises, and the script exits non-zero):
   5. the systems path (smoothed aggregation, rigid-body modes, block
      levels): elasticity3d(40) and elasticity2d(512), each with every
      block (fp32 and bf16) and ELL-T operator of the hierarchy held
-     against its plain version, then primed at tol 1e-2 and solved to
+     against its plain version (and elasticity2d's fine DIA operator
+     under all five tails, timed with L2 flushed between launches since
+     its 44 MB table fits in L2), then primed at tol 1e-2 and solved to
      1e-8 with launch counts from that solve; and a small elasticity3d(8)
      solve on the card held against the CPU.
 The plain versions sum every stored slot, row lengths ignored, so a wrong
@@ -67,12 +70,24 @@ def run(cmd):
                           check=True).stdout.strip()
 
 
-def timed_ms(fn, queued=True):
+def l2_flush_buffer(nbytes):
+    """A buffer of twice the card's L2 when `nbytes` of operands would fit
+    in L2 (so repeated launches would find them there), else None."""
+    import torch
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    if nbytes >= l2:
+        return None
+    return torch.ones(2 * l2 // 4, device="cuda")
+
+
+def timed_ms(fn, queued=True, flush=None):
     """Median of TIMED_RUNS launches, each between two CUDA events.  With
     `queued`, the runs wait behind a device sleep until the host has
     queued them all, so the events see device time alone; without it,
     each run is timed as the host launches it, Python and launch overhead
-    included (the floor of a small kernel inside the solve)."""
+    included (the floor of a small kernel inside the solve).  `flush`: a
+    buffer read (outside the events) before every run, which evicts the
+    previous run's operands from L2."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -82,6 +97,8 @@ def timed_ms(fn, queued=True):
     for _ in range(TIMED_RUNS):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.sum()
         e0.record()
         fn()
         e1.record()
@@ -106,7 +123,7 @@ def _errors(name, got, want):
 
 
 def compare(name, kernel, plain, results, time_it=True, work=None,
-            library=None, same_bits=False):
+            library=None, same_bits=False, flush=None, extra=None):
     """Kernel output(s) against the plain version's; raise above REL_TOL.
     Records max_abs_err, max_rel_err (normwise), and when timed both
     median device times and the kernel's time per call as the host
@@ -114,12 +131,14 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
     `library` = (note, {dtype: zero-arg call}) times one PyTorch call of
     the same function (its output held to the plain version too), or says
     why there is none.  `same_bits`: a second launch must give the same
-    bits."""
+    bits.  `flush`: see timed_ms (device times only).  `extra`: more keys
+    for the record."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     abs_err, rel_err = _errors(name, got, want)
-    rec = {"case": name, "max_abs_err": abs_err, "max_rel_err": rel_err}
+    rec = {"case": name, "max_abs_err": abs_err, "max_rel_err": rel_err,
+           **(extra or {})}
     if same_bits:
         again = kernel()
         torch.cuda.synchronize()
@@ -127,8 +146,10 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
             got if isinstance(got, tuple) else (got,),
             again if isinstance(again, tuple) else (again,)))
     if time_it:
-        rec["ms"], rec["plain_ms"] = timed_ms(kernel), timed_ms(plain)
+        rec["ms"] = timed_ms(kernel, flush=flush)
+        rec["plain_ms"] = timed_ms(plain, flush=flush)
         rec["call_ms"] = timed_ms(kernel, queued=False)
+        rec["l2_flushed"] = flush is not None
     if time_it and work is not None:
         real, padded, flops = work
         t_bytes, t_ops = real / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
@@ -148,9 +169,9 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
                 if not lerr <= REL_TOL:
                     raise AssertionError(f"{name}: the library call "
                                          f"disagrees ({lerr:.3e})")
-                rec["library_ms"] = timed_ms(call)
+                rec["library_ms"] = timed_ms(call, flush=flush)
             else:
-                rec[f"library_{dt}_ms"] = timed_ms(call)
+                rec[f"library_{dt}_ms"] = timed_ms(call, flush=flush)
     results.append(rec)
     print(json.dumps(rec), flush=True)
     if not rel_err <= REL_TOL:
@@ -244,10 +265,16 @@ DIA_VECTORS = {"dia_spmv": 2, "dia_residual": 3, "dia_dinv_residual": 4,
 
 def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None):
     """All five tails of the DIA kernel on one band table of n_rows real
-    rows."""
+    rows, each against its plain version, two launches giving the same
+    bits.  Timed with L2 flushed between launches when the table fits in
+    L2."""
     import torch
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
     n = bands.shape[1]
+    inst = {"instantiation": K.instantiation(bands, offsets)}
+    print(f"dia {tag}: {bands.shape[0]} bands {tuple(offsets)}, "
+          f"{inst['instantiation']}", flush=True)
+    flush = l2_flush_buffer(bands.nbytes) if time_it else None
     n_rows = n if n_rows is None else n_rows
     vec = lambda: torch.from_numpy(
         rng.standard_normal(n).astype(np.float32)).to(bands.device)
@@ -279,7 +306,8 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None):
         lib = (dia_library(bands, offsets, n_rows, x)
                if time_it and name == "dia_spmv" else None)
         compare(f"{name} {tag} {dt} n_pad={n}", kern, plain, results,
-                time_it, work=work, library=lib)
+                time_it, work=work, library=lib, same_bits=True,
+                flush=flush, extra=inst)
 
 
 def ell_case(tag, M, rng, results, time_it, same_bits=False):
@@ -454,7 +482,8 @@ def systems_phase(dim, rng, results, dev):
     setup_peak = device_memory_stats(dev).get("peak_bytes_in_use")
     levels = solver.device.levels
     kinds = [(type(l.A).__name__, l.n, getattr(l.A, "bs", 1),
-              getattr(l.A, "k", None)) for l in levels]
+              getattr(l.A, "k", None) or len(getattr(l.A, "offsets", ())))
+             for l in levels]
     shapes = launch_shapes(levels)
     print(f"{name} n={A.shape[0]} nnz={A.nnz} setup_s={solver.setup_time:.2f}"
           f" levels={kinds} mv_from_level0={solver.mv_from_level0} "
@@ -472,6 +501,12 @@ def systems_phase(dim, rng, results, dev):
         assert all(isinstance(levels[li].R, EllMatrix) for li in range(3))
         timed |= {"R0", "R1", "R2"}
     operator_cases(f"e{dim}d ", levels, rng, results, timed)
+    if dim == 2:
+        L0 = levels[0].A
+        assert len(L0.offsets) == 21 and L0.bands.dtype == torch.float32, \
+            kinds
+        dia_cases("e2d L0", L0.bands, L0.offsets, rng, results,
+                  time_it=True, n_rows=A.shape[0])
 
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     rhs = solver.prepare_rhs(b)
@@ -601,7 +636,8 @@ def main(nside=192, dev="cuda"):
     solver = AMGSolver(A, flagship.params(), flagship.krylov(), device=dev)
     setup_peak = device_memory_stats(dev).get("peak_bytes_in_use")
     levels = solver.device.levels
-    kinds = [(type(l.A).__name__, l.n, getattr(l.A, "k", None))
+    kinds = [(type(l.A).__name__, l.n,
+              getattr(l.A, "k", None) or len(getattr(l.A, "offsets", ())))
              for l in levels]
     shapes = launch_shapes(levels)
     print(f"poisson3d({nside}) n={A.shape[0]} nnz={A.nnz} gen_s={gen_s:.2f} "
@@ -680,7 +716,8 @@ def main(nside=192, dev="cuda"):
 
     keep = ("case", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by",
             "library_ms", "library_bf16_ms", "library_note", "real_bytes",
-            "padded_bytes", "max_rel_err")
+            "padded_bytes", "max_rel_err", "same_bits", "instantiation",
+            "l2_flushed")
 
     def entry(name, source, cases, timed, replaces):
         errs = [c["max_abs_err"] for c in every

@@ -35,10 +35,7 @@ def _problem(cfg):
     """(A, nullspace, params, krylov, prime) for a configuration."""
     from sparsh_amg_tpu_torch import flagship, systems
     if cfg == "p3d":
-        try:
-            from sparsh_amg_tpu_torch.models import poisson3d
-        except ImportError:          # a checkout from before models/
-            from sparsh_amg_tpu_torch._host import poisson3d
+        from sparsh_amg_tpu_torch.models import poisson3d
         return (poisson3d(192), None, flagship.params(), flagship.krylov(),
                 None)
     dim = 3 if cfg == "e3d" else 2

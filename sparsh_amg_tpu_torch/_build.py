@@ -38,6 +38,11 @@ _ENTRIES = {
     # v, b, dinv, x, s0, s1, y0, y1, y2, stream
     "dia_fused_launch": [_i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _f, _f,
                          _p, _p, _p, _p],
+    # band_bf16, n_bands: the instantiation's band count (0: run-time
+    # count); band_bf16, n_bands, offsets: the halo staged around each
+    # tile.  No CUDA call
+    "dia_instantiation": [_i, _i],
+    "dia_halo": [_i, _i, _p],
     # val_bf16, cols, vals, lens, k, n_rows, n_pad, lanes, cluster, x, y,
     # stream
     "ell_spmv_launch": [_i, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],

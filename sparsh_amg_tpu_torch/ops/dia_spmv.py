@@ -18,6 +18,12 @@ import torch.nn.functional as F
 SPMV, RESIDUAL, DINV_RESIDUAL, JACOBI, CHEB = range(5)
 MAX_BANDS = 32          # the kernel's offset table (params.dia_max_bands)
 BAND_DTYPES = (torch.float32, torch.bfloat16)
+# Each kernel thread reads 16 bytes of a band row (8 bf16 or 4 fp32 rows)
+# and of every vector: n_pad must be a multiple of ROW_ALIGN (csr_to_dia
+# pads to 128) and every tensor the kernel reads or writes must start on a
+# 16-byte boundary.  csrc/dia_spmv.cu checks the same (kRowAlign).
+ROW_ALIGN = 8
+PTR_ALIGN = 16
 
 
 def dia_plain(bands: torch.Tensor, offsets: tuple,
@@ -63,6 +69,8 @@ def _check(bands, offsets, vecs):
                          f"(1..{MAX_BANDS} supported)")
     if n_pad >= 1 << 31:
         raise ValueError(f"n_pad {n_pad} exceeds the kernel's int32 range")
+    if n_pad % ROW_ALIGN:
+        raise ValueError(f"n_pad {n_pad} is not a multiple of {ROW_ALIGN}")
     for t in vecs:
         if t.shape != (n_pad,) or t.dtype != torch.float32 \
                 or not t.is_contiguous() or t.device != bands.device:
@@ -75,8 +83,27 @@ def _c_offsets(offsets: tuple):
     return (ctypes.c_int * len(offsets))(*offsets)
 
 
+def _check_aligned(tensors):
+    for t in tensors:
+        if t.data_ptr() % PTR_ALIGN:
+            raise ValueError(f"the DIA kernel needs {PTR_ALIGN}-byte aligned "
+                             f"tensors; one starts at {t.data_ptr():#x}")
+
+
+def instantiation(bands: torch.Tensor, offsets: tuple) -> str:
+    """Which instantiation of the kernel a band table launches ("NB=<count>"
+    where the band count is a template parameter, "runtime" otherwise) and
+    the halo of v it stages around each tile, as "NB=7 halo=192"."""
+    from .. import _build
+    lib, bf16 = _build.lib(), int(bands.dtype == torch.bfloat16)
+    nb = lib.dia_instantiation(bf16, len(offsets))
+    halo = lib.dia_halo(bf16, len(offsets), _c_offsets(offsets))
+    return f"{f'NB={nb}' if nb else 'runtime'} halo={halo}"
+
+
 def _launch(tail, bands, offsets, v, b, dinv, x, s0, s1, n_out):
     from .. import _build
+    _check_aligned([t for t in (bands, v, b, dinv, x) if t is not None])
     outs = [torch.empty_like(v) for _ in range(n_out)]
     ptr = lambda t: None if t is None else t.data_ptr()
     ys = [o.data_ptr() for o in outs] + [None] * (3 - n_out)

@@ -124,7 +124,8 @@ def test_residual_dispatch_and_cpu_counts():
     assert {w.__name__: w.launches for w in port.WRAPPERS} == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "bands", "offsets"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "bands", "offsets",
+                                 "n_pad"])
 def test_dia_wrapper_rejects(bad):
     D, _, (x, *_), _ = _setup("poisson2d(32)", "fp32")
     bands, offsets, v = D.bands, D.offsets, torch.from_numpy(x)
@@ -134,6 +135,10 @@ def test_dia_wrapper_rejects(bad):
         v = v[:-1]
     elif bad == "bands":
         bands = bands.half()
+    elif bad == "n_pad":
+        # the kernel's 16-byte band loads need n_pad % ROW_ALIGN == 0
+        n = D.n_pad - port.ROW_ALIGN // 2
+        bands, v = bands[:, :n].contiguous(), v[:n].contiguous()
     else:
         offsets = offsets[:-1]
     with pytest.raises(ValueError):

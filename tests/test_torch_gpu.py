@@ -61,6 +61,104 @@ def test_dia_kernel_tails_match_plain(cuda, dtype):
     assert K.dia_cheb_step.launches == before + 1
 
 
+# offset sets: 3-D Poisson at 192^3 (+-1, +-192 inside the staged halo,
+# +-36864 beyond it), 2-D elasticity's fine level at 512^2 and at 32^2 (21
+# bands, none but 0 and +-1024 a multiple of 4), wide bands (some beyond
+# the halo, not multiples of 8), one band, and the most the kernel takes
+# (32, near and far, both signs)
+DIA_OFFSETS = {
+    "p3d": (-36864, -192, -1, 0, 1, 192, 36864),
+    "e2d": (*range(-1027, -1020), *range(-3, 4), *range(1021, 1028)),
+    "e2d(32)": (*range(-67, -60), *range(-3, 4), *range(61, 68)),
+    "wide": (-300, -129, -127, -5, 0, 3, 127, 128, 301),
+    "one": (5,),
+    "32": (-4099, -2050, -1024, -513, -300, -257, -256, -255, -129, -64,
+           -12, -8, -7, -3, -2, -1, 0, 1, 2, 3, 7, 8, 12, 64, 129, 255,
+           256, 257, 300, 513, 1024, 2050),
+}
+# n_pad in tiles of the kernel (128 threads x 16 bytes of band each):
+# 128 rows, exactly one tile, one tile + 128, three tiles + 640
+DIA_NPAD = {"128": (0, 128), "tile": (1, 0), "tile+128": (1, 128),
+            "3tiles+640": (3, 640)}
+DIA_TAILS = ("spmv", "residual", "dinv_residual", "jacobi", "cheb")
+
+
+@pytest.mark.parametrize("tail", DIA_TAILS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("npad", DIA_NPAD)
+@pytest.mark.parametrize("offs", DIA_OFFSETS)
+def test_dia_kernel_shapes(cuda, offs, npad, dtype, tail):
+    """Every instantiation (compiled band counts and the run-time one),
+    near and far offsets, whole and partial tiles: within 1e-5 of the
+    plain version (random bands, nonzero where a column leaves the
+    matrix), and a second launch gives the same bits."""
+    from sparsh_amg_tpu_torch.ops import dia_spmv as K
+    offsets = DIA_OFFSETS[offs]
+    tiles, extra = DIA_NPAD[npad]
+    n = tiles * 128 * 16 // torch.tensor([], dtype=dtype).element_size() \
+        + extra
+    rng = np.random.default_rng(len(offsets) * 1000 + n)
+    bands = torch.from_numpy(rng.standard_normal(
+        (len(offsets), n)).astype(np.float32)).to(cuda, dtype)
+    x, b, d, r = (_vec(rng, n, cuda) for _ in range(4))
+    dinv = torch.from_numpy(rng.uniform(0.1, 0.2, n).astype(
+        np.float32)).to(cuda)
+    run, want = {
+        "spmv": (lambda: K.dia_spmv(bands, x, offsets),
+                 lambda: K.dia_fused_plain(K.SPMV, bands, offsets, x)),
+        "residual": (lambda: K.dia_residual(bands, x, b, offsets),
+                     lambda: K.dia_fused_plain(K.RESIDUAL, bands, offsets,
+                                               x, b=b)),
+        "dinv_residual": (
+            lambda: K.dia_dinv_residual(bands, x, b, dinv, offsets),
+            lambda: K.dia_fused_plain(K.DINV_RESIDUAL, bands, offsets, x,
+                                      b=b, dinv=dinv)),
+        "jacobi": (
+            lambda: K.dia_jacobi_sweep(bands, x, b, dinv, 0.7, offsets),
+            lambda: K.dia_fused_plain(K.JACOBI, bands, offsets, x, b=b,
+                                      dinv=dinv, x=x, s0=0.7)),
+        "cheb": (
+            lambda: K.dia_cheb_step(bands, x, d, r, dinv, 0.3, 0.9, offsets),
+            lambda: K.dia_fused_plain(K.CHEB, bands, offsets, d, b=r,
+                                      dinv=dinv, x=x, s0=0.3, s1=0.9)),
+    }[tail]
+    got, again, ref = run(), run(), want()
+    torch.cuda.synchronize()
+    got, again, ref = ((t,) if torch.is_tensor(t) else t
+                       for t in (got, again, ref))
+    for g, a, w in zip(got, again, ref):
+        assert _rel(g, w) <= 1e-5
+        assert torch.equal(g, a)
+
+
+def test_dia_instantiations_and_alignment(cuda):
+    """The compiled band counts (7 both dtypes, 21 fp32) and the staged
+    halos (3-D Poisson's near offsets, 2-D elasticity's all, a lone band's
+    rounded up to 4), and a misaligned vector refused."""
+    from sparsh_amg_tpu_torch.ops import dia_spmv as K
+    got = {(dt, name): K.instantiation(torch.zeros(len(offs), 128, dtype=dt),
+                                       offs)
+           for dt in (torch.float32, torch.bfloat16)
+           for name, offs in DIA_OFFSETS.items()}
+    f32, b16 = torch.float32, torch.bfloat16
+    assert got == {(f32, "p3d"): "NB=7 halo=192",
+                   (f32, "e2d"): "NB=21 halo=1028",
+                   (f32, "e2d(32)"): "NB=21 halo=68",
+                   (f32, "wide"): "runtime halo=304",
+                   (f32, "one"): "runtime halo=8",
+                   (f32, "32"): "runtime halo=1024",
+                   (b16, "p3d"): "NB=7 halo=192",
+                   (b16, "e2d"): "runtime halo=1028",
+                   (b16, "e2d(32)"): "runtime halo=68",
+                   (b16, "wide"): "runtime halo=304",
+                   (b16, "one"): "runtime halo=8",
+                   (b16, "32"): "runtime halo=1024"}
+    bands = torch.ones(1, 128, device=cuda)
+    v = torch.ones(129, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        K.dia_spmv(bands, v, (0,))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ell_kernel_matches_plain(cuda, dtype):
     import scipy.sparse as sp
