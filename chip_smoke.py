@@ -28,7 +28,22 @@ Phases (any failure raises, and the script exits non-zero):
      under all five tails, timed with L2 flushed between launches since
      its 44 MB table fits in L2), then primed at tol 1e-2 and solved to
      1e-8 with launch counts from that solve; and a small elasticity3d(8)
-     solve on the card held against the CPU.
+     solve on the card held against the CPU;
+  6. the seven scalar configurations of configs.py at full size (weighted
+     Jacobi, l1-Jacobi, Chebyshev and two-stage Gauss-Seidel; V and W
+     cycles; CG and BiCGStab): every DIA table of each hierarchy (the
+     gs2 triangles, with one-sided offsets, included) under all five
+     tails, every ELL-T operator (triangles included) and every dense
+     one against its plain version, with each DIA table's instantiation
+     and halo printed; timed cases for aniso2d(1024)'s 9-band fine level
+     (SPMV and the l1-Jacobi sweep), its fine gs2 triangles, delaunay's
+     fine ELL-T level and convection3d's R0; then each primed at tol
+     1e-2 and solved to 1e-8 with launch counts, held to the JAX
+     package's CPU counts (configs.held_counts: one configuration, whose
+     BiCGStab count moves with rounding in the JAX package itself, to
+     the port's plain versions' count at full size); and a stationary
+     (method "amg") solve and a gs2-BiCGStab solve at small sizes on the
+     card held against the CPU.
 The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
@@ -263,11 +278,13 @@ DIA_VECTORS = {"dia_spmv": 2, "dia_residual": 3, "dia_dinv_residual": 4,
                "dia_jacobi_sweep": 4, "dia_cheb_step": 7}
 
 
-def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None):
+def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
+              dinv=None, timed=None):
     """All five tails of the DIA kernel on one band table of n_rows real
     rows, each against its plain version, two launches giving the same
     bits.  Timed with L2 flushed between launches when the table fits in
-    L2."""
+    L2; `timed` limits the timing to the tails named there.  `dinv`: the
+    level's own inverse diagonal, else a random one."""
     import torch
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
     n = bands.shape[1]
@@ -279,8 +296,9 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None):
     vec = lambda: torch.from_numpy(
         rng.standard_normal(n).astype(np.float32)).to(bands.device)
     x, b, d, r = vec(), vec(), vec(), vec()
-    dinv = torch.from_numpy(
-        rng.uniform(0.1, 0.2, n).astype(np.float32)).to(bands.device)
+    if dinv is None:
+        dinv = torch.from_numpy(
+            rng.uniform(0.1, 0.2, n).astype(np.float32)).to(bands.device)
     P = lambda *a, **k: (lambda: K.dia_fused_plain(*a, **k))
     cases = [
         ("dia_spmv", lambda: K.dia_spmv(bands, x, offsets),
@@ -303,11 +321,12 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None):
         nvec = DIA_VECTORS[name]
         work = (nz * bands.element_size() + 4 * n_rows * nvec,
                 bands.nbytes + 4 * n * nvec, 2 * nz)
+        t = time_it and (timed is None or name in timed)
         lib = (dia_library(bands, offsets, n_rows, x)
-               if time_it and name == "dia_spmv" else None)
+               if t and name == "dia_spmv" else None)
         compare(f"{name} {tag} {dt} n_pad={n}", kern, plain, results,
-                time_it, work=work, library=lib, same_bits=True,
-                flush=flush, extra=inst)
+                t, work=work, library=lib, same_bits=True,
+                flush=flush if t else None, extra=inst)
 
 
 def ell_case(tag, M, rng, results, time_it, same_bits=False):
@@ -383,21 +402,28 @@ def long_row_cases(rng, results, dev):
                            time_it=False, same_bits=True)
 
 
+# a level's operators, named as the kernel cases are: "A2", "P0", "R1",
+# and "tril0"/"triu0" for the two-stage Gauss-Seidel triangles
+FIELDS = {"A": "A", "P": "P", "R": "R", "L": "tril", "U": "triu"}
+
+
+def level_operators(levels, kind):
+    """[(name, level index, matrix)]: every operator of a device hierarchy
+    of layout class `kind`."""
+    return [(f"{tag}{li}", li, getattr(lev, f))
+            for li, lev in enumerate(levels) for f, tag in FIELDS.items()
+            if isinstance(getattr(lev, f), kind)]
+
+
 def sparse_operators(levels):
     """[(name, matrix)]: every ELL-T and block operator of a device
-    hierarchy, named as the kernel cases are ("P0", "R1", "A2" for ELL-T,
-    "L1" for a block level)."""
+    hierarchy ("P0", "R1", "A2", "tril1" for ELL-T, "L1" for a block
+    level)."""
     from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
     from sparsh_amg_tpu_torch.ops.formats import EllMatrix
-    out = []
-    for li, lev in enumerate(levels):
-        for f in ("A", "P", "R"):
-            M = getattr(lev, f)
-            if isinstance(M, BlockEllMatrix):
-                out.append((f"L{li}", M))
-            elif isinstance(M, EllMatrix):
-                out.append((f"{f}{li}", M))
-    return out
+    return [(f"L{li}" if isinstance(M, BlockEllMatrix) else name, M)
+            for name, li, M in level_operators(levels,
+                                               (EllMatrix, BlockEllMatrix))]
 
 
 def launch_shapes(levels):
@@ -440,16 +466,18 @@ def counted(fn):
 
 
 def calls_per_operator(fn, levels):
-    """Calls of the ELL and block SpMVs in fn(), by operator ("L<i> A/P/R"),
-    counted at the layouts' spmv methods (the wrappers and their launch
-    counts are left as they are)."""
+    """Calls of the DIA, ELL and block SpMVs in fn(), by operator
+    ("L<i> A/P/R/L/U"), counted at the layouts' spmv methods (the fused
+    DIA tails, the wrappers and their launch counts are left as they
+    are); "other" is the Krylov matvec on its own fp32 operator."""
     from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
-    from sparsh_amg_tpu_torch.ops.formats import EllMatrix
+    from sparsh_amg_tpu_torch.ops.formats import DiaMatrix, EllMatrix
+    classes = (DiaMatrix, EllMatrix, BlockEllMatrix)
     names = {id(getattr(lev, f)): f"L{li} {f}"
-             for li, lev in enumerate(levels) for f in ("A", "P", "R")
-             if isinstance(getattr(lev, f), (EllMatrix, BlockEllMatrix))}
+             for li, lev in enumerate(levels) for f in FIELDS
+             if isinstance(getattr(lev, f), classes)}
     calls = dict.fromkeys(names.values(), 0)
-    real = EllMatrix.spmv, BlockEllMatrix.spmv
+    real = [c.spmv for c in classes]
 
     def shim(method):
         def spmv(self, x):
@@ -457,11 +485,13 @@ def calls_per_operator(fn, levels):
             calls[key] = calls.get(key, 0) + 1
             return method(self, x)
         return spmv
-    EllMatrix.spmv, BlockEllMatrix.spmv = map(shim, real)
+    for c, m in zip(classes, real):
+        c.spmv = shim(m)
     try:
         fn()
     finally:
-        EllMatrix.spmv, BlockEllMatrix.spmv = real
+        for c, m in zip(classes, real):
+            c.spmv = m
     return calls
 
 
@@ -573,8 +603,183 @@ def systems_small_check(dev):
     assert on_gpu.refine_passes == on_cpu.refine_passes
 
 
+def dense_case(tag, M, rng, results):
+    """A dense operator's matvec on the card against the same product in
+    fp64 on the host."""
+    import torch
+    import torch.nn.functional as F
+    r, c = M.mat.shape
+    x = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(
+        M.mat.device)
+
+    def plain():
+        y = M.mat.cpu().double() @ x.cpu().double()
+        return F.pad(y, (0, M.out_pad - r)).to(x.device)
+    compare(f"dense {tag} {M.n_rows}x{M.n_cols}", lambda: M.spmv(x), plain,
+            results, time_it=False)
+
+
+# phase 6: short names of the configurations in the kernel cases
+CONFIG_TAGS = {
+    "poisson2d_1024_wjacobi_V_cg": "p2d(1024)",
+    "aniso2d_1024_eps1e-3_rot45_aggW_bicgstab": "aniso-SA(1024)",
+    "aniso2d_2048_eps1e-3_rot45_aggW_bicgstab": "aniso-SA(2048)",
+    "aniso2d_1024_pmis_extpi_W_gs2_bicgstab": "aniso-gs2(1024)",
+    "convection3d_96_pmis_extpi_V_bicgstab": "c3d(96)",
+    "jump2d_1024_random_1e4_V_cg": "jump2d(1024)",
+    "delaunay_1024sq_rcm_l1jac_V_cg": "delaunay(1024^2)",
+}
+# the timed cases of each configuration: DIA tables with the
+# tails to time (the level's l1 inverse diagonal feeds the Jacobi tail),
+# and ELL-T operators
+CONFIG_TIMED = {
+    "aniso2d_1024_eps1e-3_rot45_aggW_bicgstab": {
+        "dia": {"A0": ("dia_spmv", "dia_jacobi_sweep")}},
+    "aniso2d_1024_pmis_extpi_W_gs2_bicgstab": {
+        "dia": {"tril0": ("dia_spmv",), "triu0": ("dia_spmv",)}},
+    "delaunay_1024sq_rcm_l1jac_V_cg": {"ell": {"A0"}},
+    "convection3d_96_pmis_extpi_V_bicgstab": {"ell": {"R0"}},
+}
+# wrappers each configuration's counted solve must launch, and operators
+# whose SpMV it must call (calls_per_operator's names)
+CONFIG_LAUNCHES = {
+    "poisson2d_1024_wjacobi_V_cg": ("dia_jacobi_sweep", "dia_residual",
+                                    "dia_spmv", "ell_spmv"),
+    "aniso2d_1024_eps1e-3_rot45_aggW_bicgstab": (
+        "dia_jacobi_sweep", "dia_residual", "dia_spmv", "ell_spmv"),
+    "aniso2d_2048_eps1e-3_rot45_aggW_bicgstab": (
+        "dia_jacobi_sweep", "dia_residual", "dia_spmv", "ell_spmv"),
+    "aniso2d_1024_pmis_extpi_W_gs2_bicgstab": ("dia_spmv", "dia_residual",
+                                               "ell_spmv"),
+    "convection3d_96_pmis_extpi_V_bicgstab": ("dia_spmv", "dia_residual",
+                                              "ell_spmv"),
+    "jump2d_1024_random_1e4_V_cg": ("dia_cheb_step", "dia_dinv_residual",
+                                    "dia_residual", "dia_spmv", "ell_spmv"),
+    "delaunay_1024sq_rcm_l1jac_V_cg": ("ell_spmv",),
+}
+CONFIG_CALLS = {
+    "aniso2d_1024_pmis_extpi_W_gs2_bicgstab": ("L0 L", "L0 U"),
+    "convection3d_96_pmis_extpi_V_bicgstab": ("L0 L", "L0 U"),
+    "delaunay_1024sq_rcm_l1jac_V_cg": ("L0 A",),
+}
+
+
+def config_phase(name, rng, results, dev):
+    """Phase 6 for one configuration of configs.py at full size: every
+    DIA, ELL-T and dense operator of the hierarchy against its plain
+    version, the configured cases timed, then the primed solve to 1e-8.
+    Returns the solve's launch counts."""
+    import torch
+    from sparsh_amg_tpu_torch import AMGSolver, configs
+    from sparsh_amg_tpu_torch.ops.formats import DenseMatrix, DiaMatrix
+    from sparsh_amg_tpu_torch.utils.meminfo import device_memory_stats
+    t_phase = time.perf_counter()
+    A, _ = configs.problem(name)
+    gen_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    solver = AMGSolver(A, configs.params(name), configs.krylov(name),
+                       device=dev)
+    setup_peak = device_memory_stats(dev).get("peak_bytes_in_use")
+    levels = solver.device.levels
+    kinds = [(type(l.A).__name__, l.n,
+              getattr(l.A, "k", None) or len(getattr(l.A, "offsets", ())),
+              type(l.L).__name__, type(l.U).__name__) for l in levels]
+    shapes = launch_shapes(levels)
+    print(f"{name} n={A.shape[0]} nnz={A.nnz} gen_s={gen_s:.2f} "
+          f"setup_s={solver.setup_time:.2f} levels={kinds} "
+          f"launch_shapes={shapes}", flush=True)
+    timed = CONFIG_TIMED.get(name, {})
+    tag = CONFIG_TAGS[name] + " "
+    krylov_op = solver._krylov_op
+    if krylov_op is not levels[0].A:        # the fine level's fp32 copy
+        if isinstance(krylov_op, DiaMatrix):
+            dia_cases(tag + "Krylov operator", krylov_op.bands,
+                      krylov_op.offsets, rng, results, False, A.shape[0])
+        else:
+            ell_case(tag + "Krylov operator", krylov_op, rng, results,
+                     False)
+    for op, li, M in level_operators(levels, DiaMatrix):
+        lev = levels[li]
+        tails = timed.get("dia", {}).get(op)
+        dia_cases(tag + op, M.bands, M.offsets, rng, results,
+                  tails is not None, n_rows=M.n_rows,
+                  dinv=lev.l1_dinv if lev.l1_dinv is not None else lev.dinv,
+                  timed=tails)
+    operator_cases(tag, levels, rng, results, timed.get("ell", set()))
+    for op, _, M in level_operators(levels, DenseMatrix):
+        dense_case(tag + op, M, rng, results)
+
+    b = configs.rhs(A.shape[0])
+    rhs = solver.prepare_rhs(b)
+    solver.solve(rhs, tol=1e-2)             # prime, as run_configs_tpu.py
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = counted(lambda: solver.solve(rhs))
+    solve_peak = device_memory_stats(dev).get("peak_bytes_in_use")
+    x = res.x
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    repeats = [solver.solve(rhs).solve_time for _ in range(REPEATS)]
+    per_op = calls_per_operator(lambda: solver.solve(rhs), levels)
+    ref = configs.REFERENCE[name]
+    print(json.dumps({
+        "config": name, "gen_s": gen_s, "setup_s": solver.setup_time,
+        "solve_s": res.solve_time, "solve_s_repeats": repeats,
+        "spmv_calls_per_operator": per_op,
+        "iterations": res.iterations,
+        "refine_passes": res.refine_passes, "jax_reference": ref,
+        "levels": solver.hierarchy.n_levels,
+        "operator_complexity": solver.hierarchy.operator_complexity(),
+        "device_bytes": solver.device_bytes(),
+        "setup_peak_bytes": setup_peak, "solve_peak_bytes": solve_peak,
+        "relres_host_fp64": relres, "relres_solver": res.relres,
+        "converged": res.converged, "history": res.history,
+        "launches": launches, "launch_shapes": shapes,
+        "phase_s": time.perf_counter() - t_phase}), flush=True)
+    assert x.shape == (A.shape[0],) and np.isfinite(x).all()
+    assert res.converged and relres <= 1e-8, (name, res, relres)
+    want = configs.held_counts(name)
+    assert res.refine_passes == want["refine_passes"], (name, res, want)
+    assert abs(res.iterations - want["iterations"]) <= \
+        configs.iteration_slack(name), (name, res, want)
+    for w in CONFIG_LAUNCHES[name]:
+        assert launches[w] > 0, f"{name}: {w} not launched during the solve"
+    for op in CONFIG_CALLS.get(name, ()):
+        assert per_op[op] > 0, f"{name}: no SpMV on {op} during the solve"
+    return launches
+
+
+def config_small_checks(dev):
+    """A stationary AMG solve (method "amg") and a gs2-BiCGStab solve at
+    small sizes on the card, each against the same solve on the CPU."""
+    import dataclasses
+    from sparsh_amg_tpu_torch import AMGSolver, configs
+    for name, m, method in (("poisson2d_1024_wjacobi_V_cg", 64, "amg"),
+                            ("convection3d_96_pmis_extpi_V_bicgstab", 16,
+                             None)):
+        A, _ = configs.problem(name, m)
+        b = configs.rhs(A.shape[0])
+        p = configs.params(name, dense_size=256)
+        kr = configs.krylov(name)
+        if method:
+            kr = dataclasses.replace(kr, method=method)
+        on_gpu = AMGSolver(A, p, kr, device=dev).solve(b)
+        on_cpu = AMGSolver(A, p, kr, device="cpu").solve(b)
+        dx = np.linalg.norm(on_gpu.x - on_cpu.x) / np.linalg.norm(on_cpu.x)
+        rel = [float(np.linalg.norm(b - A @ r.x) / np.linalg.norm(b))
+               for r in (on_gpu, on_cpu)]
+        print(f"{name}({m}) {kr.method} cuda {on_gpu} cpu {on_cpu} host "
+              f"relres {rel} rel diff x {dx:.3e}", flush=True)
+        assert on_gpu.converged and on_cpu.converged
+        assert max(rel) <= 1e-8, rel
+        assert abs(on_gpu.iterations - on_cpu.iterations) <= \
+            (2 if kr.method == "bicgstab" else 1)
+        assert on_gpu.refine_passes == on_cpu.refine_passes
+        assert dx <= 1e-6, dx
+
+
 def main(nside=192, dev="cuda"):
     # -- 1. environment ----------------------------------------------------
+    t_start = time.perf_counter()
     import torch
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -703,15 +908,29 @@ def main(nside=192, dev="cuda"):
     assert dx <= 1e-7, dx
     del solver, levels, L0, rhs
 
+    print(f"phase_s 1-4 {time.perf_counter() - t_start:.1f}", flush=True)
+
     # -- 5. the systems path ------------------------------------------------
+    t0 = time.perf_counter()
     sysk = []
     paths = [launches]
     for dim in (3, 2):
         paths.append(systems_phase(dim, rng, sysk, dev))
     systems_small_check(dev)
+    print(f"phase_s 5 {time.perf_counter() - t0:.1f}", flush=True)
+
+    # -- 6. the scalar configurations ----------------------------------------
+    from sparsh_amg_tpu_torch import configs
+    t0 = time.perf_counter()
+    cfgk = []
+    for name in configs.NAMES:
+        paths.append(config_phase(name, rng, cfgk, dev))
+        torch.cuda.empty_cache()
+    config_small_checks(dev)
+    print(f"phase_s 6 {time.perf_counter() - t0:.1f}", flush=True)
 
     # -- result lines ------------------------------------------------------
-    every = small + flag + sysk
+    every = small + flag + sysk + cfgk
     total = {k: sum(p[k] for p in paths) for k in launches}
 
     keep = ("case", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by",
@@ -722,7 +941,7 @@ def main(nside=192, dev="cuda"):
     def entry(name, source, cases, timed, replaces):
         errs = [c["max_abs_err"] for c in every
                 if c["case"].split()[0] in cases]
-        timed_cases = [c for c in flag + sysk
+        timed_cases = [c for c in flag + sysk + cfgk
                        if c["case"].split()[0] in cases and "ms" in c]
         t = next(c for c in timed_cases if c["case"].startswith(timed))
         return {"name": name, "route": "cuda",

@@ -2,8 +2,9 @@
 
 Each level carries its operator in a DIA/ELL-T/dense layout, the
 inverse-diagonal vectors for the smoothers, a lambda_max estimate of
-D^-1 A for Chebyshev, the prolongator/restrictor, and on the coarsest
-level a dense fp32 inverse.  ``lam_max`` is a Python float, read once at
+D^-1 A for Chebyshev, the prolongator/restrictor, on the coarsest level a
+dense fp32 inverse, and for two-stage Gauss-Seidel the strict triangles
+of A in their own layouts.  ``lam_max`` is a Python float, read once at
 freeze time, so the Chebyshev scalars reach the kernels as plain float
 arguments with no device sync per call.
 """
@@ -36,6 +37,8 @@ class DeviceLevel:
     coarse_inv: torch.Tensor | None  # dense inverse on the coarsest level
     n: int = 0                # logical size
     coarse_sweeps: int = 16   # l1-Jacobi sweeps when coarse_inv is None
+    L: object | None = None   # strict lower triangle (two-stage GS)
+    U: object | None = None   # strict upper triangle
 
     @property
     def n_pad(self) -> int:
@@ -250,10 +253,22 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None, dtype=None,
             coarse_inv = torch.from_numpy(dense).to(device=device,
                                                     dtype=dtype)
 
+        L = U = None
+        if params.smoother == "gs2" and coarse_inv is None:
+            # each triangle in the layout csr_to_device picks for it: DIA
+            # tables with one-sided offsets on stencil levels
+            conv = lambda T: csr_to_device(
+                T.tocsr(), dtype=bdtype, prefer_dia=params.prefer_dia,
+                dia_max_bands=params.dia_max_bands,
+                dense_size=params.dense_size, pad_multiple=2048,
+                device=device)
+            L = conv(sp.tril(A, -1))
+            U = conv(sp.triu(A, 1))
+
         levels.append(DeviceLevel(
             A=dev_A, dinv=dinv_t, l1_dinv=l1_dinv_t, lam_max=_f32(lam),
             P=P, R=R, coarse_inv=coarse_inv, n=n,
-            coarse_sweeps=params.coarse_smooth_sweeps))
+            coarse_sweeps=params.coarse_smooth_sweeps, L=L, U=U))
     return DeviceHierarchy(levels=tuple(levels))
 
 
@@ -374,11 +389,9 @@ def _layout_from_jax(M, device):
 
 def hierarchy_from_jax(dev, *, device) -> DeviceHierarchy:
     """Build the port's DeviceHierarchy from a JAX one: the same dinv,
-    lam_max, bands, ELL tables and coarse inverse."""
+    lam_max, bands, ELL tables, coarse inverse and GS triangles."""
     levels = []
     for lev in dev.levels:
-        if getattr(lev, "L", None) is not None:
-            raise TypeError("two-stage GS triangles are not ported")
         levels.append(DeviceLevel(
             A=_layout_from_jax(lev.A, device),
             dinv=_tensor(lev.dinv, device),
@@ -389,5 +402,7 @@ def hierarchy_from_jax(dev, *, device) -> DeviceHierarchy:
             R=_layout_from_jax(lev.R, device),
             coarse_inv=None if lev.coarse_inv is None
             else _tensor(lev.coarse_inv, device),
-            n=lev.n, coarse_sweeps=lev.coarse_sweeps))
+            n=lev.n, coarse_sweeps=lev.coarse_sweeps,
+            L=_layout_from_jax(getattr(lev, "L", None), device),
+            U=_layout_from_jax(getattr(lev, "U", None), device)))
     return DeviceHierarchy(levels=tuple(levels))

@@ -1,8 +1,9 @@
 """Smoothers (the port of ``sparsh_amg_tpu/solve/smoothers.py``).
 
-Weighted Jacobi, l1-Jacobi and Chebyshev.  On DIA levels each sweep or
-Chebyshev step is one fused kernel (``ops/dia_spmv.py``); elsewhere an
-SpMV plus plain elementwise PyTorch.  All smoothers preserve zero padding
+Weighted Jacobi, l1-Jacobi, Chebyshev and two-stage Gauss-Seidel.  On DIA
+levels each Jacobi sweep or Chebyshev step, and each Gauss-Seidel
+residual, is one fused kernel (``ops/dia_spmv.py``); elsewhere an SpMV
+plus plain elementwise PyTorch.  All smoothers preserve zero padding
 because dinv/l1_dinv are zero there.  Chebyshev scalars are computed in
 fp32 (numpy scalars), as the JAX package computes them from its fp32
 lam_max.
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.dia_spmv import dia_cheb_step, dia_dinv_residual, dia_jacobi_sweep
-from ..ops.formats import DiaMatrix, spmv
+from ..ops.formats import DiaMatrix, residual, spmv
 
 
 def _jacobi_like(A, b, x, sweeps, dinv, omega, zero_start):
@@ -79,11 +80,33 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
     return x + d
 
 
+def two_stage_gs(level, b, x, sweeps: int, stages: int = 2,
+                 backward: bool = False, zero_start: bool = False):
+    """Two-stage Gauss-Seidel: each sweep solves (D + L) z = r inexactly
+    with `stages` Jacobi iterations on the triangle, z_0 = D^-1 r,
+    z_{k+1} = D^-1 (r - L z_k).  `backward=True` uses U instead (the
+    post-smoothing direction).  A level without triangles (the coarsest,
+    when it has a dense inverse) falls back to l1-Jacobi."""
+    T = level.U if backward else level.L
+    if T is None:
+        return l1_jacobi(level, b, x, sweeps, zero_start)
+    for s in range(sweeps):
+        if zero_start and s == 0:
+            r = b
+        else:
+            r = residual(level.A, x, b)
+        z = level.dinv * r
+        for _ in range(stages - 1):
+            z = level.dinv * (r - spmv(T, z))
+        x = z if (zero_start and s == 0) else x + z
+    return x
+
+
 def smooth(level, b, x, params, zero_start: bool = False, sweeps: int = None,
            backward: bool = False, coarse: bool = False):
-    """Dispatch on params.smoother.  `coarse` selects the reduced
-    coarse-level Chebyshev degree when configured; `backward` is accepted
-    for the direction-dependent two-stage GS, which is not ported."""
+    """Dispatch on params.smoother.  `backward` selects the sweep direction
+    of two-stage GS; `coarse` selects the reduced coarse-level Chebyshev
+    degree when configured."""
     name = params.smoother
     if name == "jacobi":
         nu = sweeps if sweeps is not None else params.nu1
@@ -98,6 +121,7 @@ def smooth(level, b, x, params, zero_start: bool = False, sweeps: int = None,
         return chebyshev(level, b, x, degree,
                          params.cheby_lower_frac, zero_start)
     if name == "gs2":
-        raise NotImplementedError("two-stage Gauss-Seidel (gs2) is not "
-                                  "ported yet; see ROADMAP.md")
+        nu = sweeps if sweeps is not None else params.nu1
+        return two_stage_gs(level, b, x, nu, params.gs_stages, backward,
+                            zero_start)
     raise ValueError(f"unknown smoother {name!r}")

@@ -1,11 +1,12 @@
 """Top-level solver (the port of ``sparsh_amg_tpu/solve/solver.py``).
 
 The hierarchy is built on the host in float64 (the shared setup), frozen
-into padded device layouts, and solved by AMG-preconditioned CG in fp32
-inside mixed-precision iterative refinement: each pass computes the
-residual in fp64 on the device, solves for a correction in fp32, and adds
-it to the fp64 solution.  The Krylov loop is a plain host loop that reads
-||r||^2 once per iteration.
+into padded device layouts, and solved by AMG-preconditioned CG or
+BiCGStab, or by the stationary AMG iteration, in fp32 inside
+mixed-precision iterative refinement: each pass computes the residual in
+fp64 on the device, solves for a correction in fp32, and adds it to the
+fp64 solution.  The Krylov loop is a plain host loop with one host sync
+per iteration (||r||^2, and BiCGStab's breakdown flag in the same read).
 """
 from __future__ import annotations
 
@@ -26,7 +27,11 @@ from ..setup.hierarchy import Hierarchy, amg_setup
 from ..setup.reorder import maybe_reorder
 from .cycles import make_cycle
 from .device import DeviceHierarchy, _torch_dtype, to_device
-from .krylov import pcg_init, pcg_step
+from .krylov import (bicgstab_init, bicgstab_step, pcg_init, pcg_step,
+                     stationary_init, stationary_step)
+
+# state index of ||r||^2 and of the iteration count, per method
+_READS = {"cg": (5, 6), "bicgstab": (7, 8), "amg": (2, 3)}
 
 
 @dataclasses.dataclass
@@ -64,7 +69,8 @@ class DeviceRhs:
 
 
 class AMGSolver:
-    """Reusable AMG-preconditioned CG solver for a fixed matrix.
+    """Reusable AMG-preconditioned Krylov solver for a fixed matrix
+    (krylov.method: "cg", "bicgstab", or "amg", the cycle alone).
 
     >>> solver = AMGSolver(A, params, krylov, device="cuda")
     >>> res = solver.solve(b)           # b float64, returns SolveResult
@@ -78,9 +84,8 @@ class AMGSolver:
         self.params = params or (hierarchy.params if hierarchy else None) \
             or AMGParams()
         self.krylov = krylov or KrylovParams()
-        if self.krylov.method != "cg":
-            raise NotImplementedError(f"Krylov method {self.krylov.method!r}"
-                                      " is not ported yet; see ROADMAP.md")
+        if self.krylov.method not in _READS:
+            raise ValueError(f"unknown Krylov method {self.krylov.method!r}")
         # the dense coarse solve and dense levels must stay fp32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
@@ -133,20 +138,39 @@ class AMGSolver:
         return tree_device_bytes((self.device, self.A64, self.A32))
 
     def _inner_solve(self, b: torch.Tensor, tol: float, maxiter: int):
-        """fp32 AMG-PCG on b until ||r|| <= tol ||b|| or maxiter
-        iterations.  Returns (x, iters, relres)."""
+        """fp32 AMG-preconditioned iteration on b from x = 0 until
+        ||r|| <= tol ||b||, maxiter iterations, or a BiCGStab breakdown.
+        Returns (x, iters, relres)."""
         levels = self.device.levels
         mv = lambda v: spmv(self._krylov_op, v)
         pc = lambda r: self._cycle(levels, r)
-        state = pcg_init(mv, pc, b, self._dot)
-        rr0 = rr = state[5].item()
+        dot, method = self._dot, self.krylov.method
+        if method == "cg":
+            state = pcg_init(mv, pc, b, dot)
+            step = lambda st: pcg_step(mv, pc, dot, st)
+        elif method == "bicgstab":
+            # the shadow residual is the pass's right-hand side
+            state = bicgstab_init(mv, b, dot)
+            step = lambda st: bicgstab_step(mv, pc, dot, b, st)
+        else:
+            state = stationary_init(mv, pc, b, dot)
+            step = lambda st: stationary_step(mv, pc, dot, st)
+        i_rr, i_k = _READS[method]
+        rr0 = rr = state[i_rr].item()
         if rr0 == 0.0:
             return state[0], 0, 0.0
         target = (tol * tol) * rr0
-        while rr > target and np.isfinite(rr) and state[6] < maxiter:
-            state = pcg_step(mv, pc, self._dot, state)
-            rr = state[5].item()
-        return state[0], state[6], float(np.sqrt(max(rr, 0.0) / rr0))
+        broken = False
+        while (rr > target and np.isfinite(rr) and not broken
+               and state[i_k] < maxiter):
+            state = step(state)
+            if method == "bicgstab":
+                # ||r||^2 and the breakdown flag in one host sync
+                rr, broken = torch.stack(
+                    (state[7], state[9].to(state[7].dtype))).tolist()
+            else:
+                rr = state[i_rr].item()
+        return state[0], state[i_k], float(np.sqrt(max(rr, 0.0) / rr0))
 
     def _pass_tol(self, tol: float, relres: float) -> float:
         """Inner tolerance for the next refinement pass: aim 10x past the

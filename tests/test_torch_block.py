@@ -43,6 +43,17 @@ from sparsh_amg_tpu_torch.ops.block_ell import (BlockEllMatrix,
                                                 csr_to_block_ell)
 from sparsh_amg_tpu_torch.solve import cycles, device
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: at these sizes it is faster than the default
+    pool, and it leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 
 # small problems, and the dense threshold that keeps their systems levels

@@ -92,11 +92,36 @@ def test_dia_kernel_shapes(cuda, offs, npad, dtype, tail):
     near and far offsets, whole and partial tiles: within 1e-5 of the
     plain version (random bands, nonzero where a column leaves the
     matrix), and a second launch gives the same bits."""
-    from sparsh_amg_tpu_torch.ops import dia_spmv as K
-    offsets = DIA_OFFSETS[offs]
     tiles, extra = DIA_NPAD[npad]
     n = tiles * 128 * 16 // torch.tensor([], dtype=dtype).element_size() \
         + extra
+    _dia_case(cuda, DIA_OFFSETS[offs], n, dtype, tail)
+
+
+# the strict triangles of two-stage Gauss-Seidel (one-sided offsets: the
+# staged halo is symmetric, so half of it goes unread) and the 5- and
+# 9-band 2-D stencils, at 1024^2's offsets
+ONE_SIDED = {
+    "-1": (-1,),
+    "+1": (1,),
+    "tril 9-band": (-1025, -1024, -1023, -1),
+    "triu 9-band": (1, 1023, 1024, 1025),
+    "tril 5-band": (-1024, -1),
+    "5-band": (-1024, -1, 0, 1, 1024),
+    "9-band": (-1025, -1024, -1023, -1, 0, 1, 1023, 1024, 1025),
+}
+
+
+@pytest.mark.parametrize("tail", DIA_TAILS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2176, 12928])
+@pytest.mark.parametrize("offs", ONE_SIDED)
+def test_dia_kernel_one_sided_and_2d_stencils(cuda, offs, n, dtype, tail):
+    _dia_case(cuda, ONE_SIDED[offs], n, dtype, tail)
+
+
+def _dia_case(cuda, offsets, n, dtype, tail):
+    from sparsh_amg_tpu_torch.ops import dia_spmv as K
     rng = np.random.default_rng(len(offsets) * 1000 + n)
     bands = torch.from_numpy(rng.standard_normal(
         (len(offsets), n)).astype(np.float32)).to(cuda, dtype)
@@ -262,3 +287,31 @@ def test_block_kernel_long_rows(cuda, bs, shape, dtype):
     assert _rel(got, block_ell_plain(M.cols, M.vals, x)) <= 1e-5
     assert torch.equal(got, again)
     assert not got[M.n_rows:].any()
+
+
+def test_gs2_bicgstab_solve_matches_cpu(cuda):
+    """A small nonsymmetric gs2-BiCGStab solve (DIA triangles on the fine
+    level, ELL-T ones below) on the card against the same solve on the
+    CPU."""
+    from sparsh_amg_tpu_torch import AMGSolver, configs
+    name = "convection3d_96_pmis_extpi_V_bicgstab"
+    A, _ = configs.problem(name, 12)
+    b = configs.rhs(A.shape[0])
+    p, kr = configs.params(name, dense_size=256), configs.krylov(name)
+    solver = AMGSolver(A, p, kr, device=cuda)
+    assert type(solver.device.levels[0].L).__name__ == "DiaMatrix"
+    on_gpu = solver.solve(b)
+    on_cpu = AMGSolver(A, p, kr, device="cpu").solve(b)
+    assert on_gpu.converged and on_cpu.converged
+    assert abs(on_gpu.iterations - on_cpu.iterations) <= 2
+    assert on_gpu.refine_passes == on_cpu.refine_passes
+    for r in (on_gpu, on_cpu):
+        assert np.linalg.norm(b - A @ r.x) / np.linalg.norm(b) <= 1e-8
+
+
+def test_benchmark_op_times_the_card(cuda):
+    """utils/timing.benchmark_op times a CUDA op between events."""
+    from sparsh_amg_tpu_torch.utils.timing import benchmark_op
+    x = torch.ones(1 << 24, device=cuda)
+    s = benchmark_op(lambda v: v * 2, x, iters=5)
+    assert 0.0 < s < 0.1

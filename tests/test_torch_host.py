@@ -98,3 +98,45 @@ def test_port_reorder_gives_the_jax_permutation(mode):
     if pm is not None:
         np.testing.assert_array_equal(pm, pr)
     _same_csr(sp.csr_matrix(Am), sp.csr_matrix(Ar), f"reordered {mode}")
+
+
+# the families the port copied for the seven scalar acceptance
+# configurations, each at a small size: (module, function, args, keywords)
+FAMILIES = {
+    "poisson2d": ("poisson", "poisson2d", (17,), {}),
+    "poisson3d": ("poisson", "poisson3d", (7,), {}),
+    "anisotropic2d rot45": ("anisotropic", "anisotropic2d", (19,),
+                            dict(epsilon=1e-3, angle_deg=45)),
+    "anisotropic3d": ("anisotropic", "anisotropic3d", (7,), {}),
+    "convection2d": ("convection", "convection2d", (15,), {}),
+    "convection3d": ("convection", "convection3d", (9,), {}),
+    "jump2d checkerboard": ("jump", "jump2d", (18,), {}),
+    "jump2d random 1e4": ("jump", "jump2d", (18,),
+                          dict(contrast=1e4, pattern="random")),
+    "delaunay_laplacian rcm": ("unstructured", "delaunay_laplacian", (400,),
+                               {}),
+    "delaunay_laplacian raw": ("unstructured", "delaunay_laplacian", (300,),
+                               dict(rcm=False, seed=2)),
+}
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_copied_model_families_match_jax(family):
+    """Each copied generator gives the JAX package's CSR bit for bit, and
+    get_problem the same named problem and right-hand side."""
+    import importlib
+    mod, fn, args, kw = FAMILIES[family]
+    mine = getattr(importlib.import_module(
+        f"sparsh_amg_tpu_torch.models.{mod}"), fn)(*args, **kw)
+    ref = getattr(importlib.import_module(
+        f"sparsh_amg_tpu.models.{mod}"), fn)(*args, **kw)
+    _same_csr(sp.csr_matrix(mine), sp.csr_matrix(ref), family)
+    name = {"anisotropic2d": "anisotropic", "jump2d": "jump",
+            "convection2d": "convection"}.get(fn, fn)
+    if name in ("poisson2d", "poisson3d", "anisotropic", "anisotropic3d",
+                "convection", "convection3d", "jump") and not kw:
+        n = args[0] ** (3 if name.endswith("3d") else 2)
+        pm, pr = models.get_problem(name, n=n), jmodels.get_problem(name, n=n)
+        assert (pm.name, pm.meta) == (pr.name, pr.meta)
+        _same_csr(pm.A, pr.A, f"get_problem {name}")
+        np.testing.assert_array_equal(pm.b, pr.b)

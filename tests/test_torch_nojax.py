@@ -19,11 +19,16 @@ _CHILD = r"""
 import json, sys
 sys.modules["jax"] = None              # import jax now raises ImportError
 import numpy as np
-from sparsh_amg_tpu_torch import AMGSolver, flagship, systems
+from sparsh_amg_tpu_torch import AMGSolver, cli, configs, flagship, systems
 from sparsh_amg_tpu_torch.models import poisson3d
+from sparsh_amg_tpu_torch.utils import io, serialize, timing
 if sys.argv[1] == "flagship":
     A, ns = poisson3d(16), None
     p, kr = flagship.params(dense_size=256), flagship.krylov()
+elif sys.argv[1] in configs.NAMES:     # gs2 triangles, BiCGStab
+    A, ns = configs.problem(sys.argv[1], 10)
+    p, kr = configs.params(sys.argv[1], dense_size=256), \
+        configs.krylov(sys.argv[1])
 else:                                  # smoothed aggregation, 3 dofs/node
     A, ns = systems.problem(3, 6)
     p, kr = systems.params(3, dense_size=256), systems.krylov()
@@ -67,6 +72,13 @@ def test_systems_solve_without_jax():
     got = _solve_without_jax("elasticity3d(6)")
     assert got["L0"] == "BlockEllMatrix", got
     assert got["iterations"] <= 20 and got["passes"] == 2, got
+
+
+def test_gs2_bicgstab_solve_without_jax():
+    """The copied model families, BiCGStab, the gs2 triangles, the CLI and
+    the copied utilities load and solve without jax."""
+    got = _solve_without_jax("convection3d_96_pmis_extpi_V_bicgstab")
+    assert got["L0"] == "DiaMatrix" and got["passes"] == 2, got
 
 
 def _imports(path):

@@ -1,7 +1,8 @@
 """The port's device freeze, cycles and refinement solver (plain versions
 on the CPU) against the JAX package.
 
-* to_device builds the same layouts, diagonals, lambda_max and transfers;
+* to_device builds the same layouts, diagonals, lambda_max, transfers and
+  two-stage Gauss-Seidel triangles;
 * one cycle on identical frozen data (hierarchy_from_jax) agrees with the
   JAX make_cycle at rtol 1e-5 (normwise floor; fp32 sums in another order);
 * the full flagship solve (dense_size 256, so the small grids still reach
@@ -15,16 +16,28 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from sparsh_amg_tpu.models.anisotropic import anisotropic2d
 from sparsh_amg_tpu.models.poisson import poisson2d, poisson3d
 from sparsh_amg_tpu import params as jparams
 from sparsh_amg_tpu.setup.hierarchy import amg_setup
 from sparsh_amg_tpu.solve import cycles as jcycles
 from sparsh_amg_tpu.solve import device as jdevice
 from sparsh_amg_tpu.solve.solver import AMGSolver as JaxSolver
-from sparsh_amg_tpu_torch import AMGSolver, flagship, to_device
+from sparsh_amg_tpu_torch import AMGSolver, configs, flagship, to_device
 from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
 from sparsh_amg_tpu_torch.solve import cycles, device
 from sparsh_amg_tpu_torch.utils.meminfo import tree_device_bytes
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: at these sizes it is faster than the default
+    pool, and it leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 RTOL = 1e-5
 
@@ -61,15 +74,52 @@ def _np(t):
         t, torch.Tensor) else np.asarray(t, np.float32))
 
 
-@pytest.mark.parametrize("band_dtype", ["float32", "bfloat16"])
-def test_to_device_matches_jax(band_dtype):
-    p = _deep_params(band_dtype=band_dtype)
-    hier = amg_setup(poisson3d(20), _jax(p))
+_SA = "aniso2d_1024_eps1e-3_rot45_aggW_bicgstab"
+_GS2 = "aniso2d_1024_pmis_extpi_W_gs2_bicgstab"
+# (problem, params, levels): the flagship's smoother and coarsening in
+# fp32 and bf16 and with two-stage GS (DIA triangles with one-sided
+# offsets on L0, ELL-T triangles on L1-L2); the rotated anisotropic
+# configurations at 48^2, smoothed aggregation (9-band DIA on every level
+# above the dense ones) and PMIS with gs2
+TO_DEVICE = {
+    "float32": (lambda: poisson3d(20),
+                lambda: _deep_params(band_dtype="float32"), 4),
+    "bfloat16": (lambda: poisson3d(20),
+                 lambda: _deep_params(band_dtype="bfloat16"), 4),
+    "gs2": (lambda: poisson3d(20),
+            lambda: _deep_params(band_dtype="float32", smoother="gs2"), 4),
+    "aniso SA": (lambda: anisotropic2d(48, epsilon=1e-3, angle_deg=45),
+                 lambda: configs.params(_SA, dense_size=64, coarse_size=64),
+                 5),
+    "aniso gs2": (lambda: anisotropic2d(48, epsilon=1e-3, angle_deg=45),
+                  lambda: configs.params(_GS2, dense_size=256,
+                                         coarse_size=64), 4),
+}
+
+
+@pytest.mark.parametrize("case", TO_DEVICE)
+def test_to_device_matches_jax(case):
+    make_A, make_p, n_levels = TO_DEVICE[case]
+    p = make_p()
+    hier = amg_setup(make_A().tocsr(), _jax(p))
     J = jdevice.to_device(hier, _jax(p))
     T = to_device(hier, p, device="cpu")
-    assert T.n_levels == J.n_levels == 4
+    assert T.n_levels == J.n_levels == n_levels
+    kinds = [type(l.A).__name__ for l in T.levels]
+    if case.startswith("aniso SA"):
+        assert kinds[:3] == ["DiaMatrix"] * 3, kinds
+        assert len(T.levels[1].A.offsets) >= 9
+    tri = [(type(l.L).__name__, type(l.U).__name__) for l in T.levels]
+    if "gs2" in case:
+        assert tri[0] == ("DiaMatrix", "DiaMatrix"), tri
+        assert all(o < 0 for o in T.levels[0].L.offsets)
+        assert all(o > 0 for o in T.levels[0].U.offsets)
+        assert "EllMatrix" in {t for pair in tri[1:] for t in pair}, tri
+        assert tri[-1] == ("NoneType", "NoneType")       # dense inverse
+    else:
+        assert set(tri) == {("NoneType", "NoneType")}
     for lj, lt in zip(J.levels, T.levels):
-        for f in ("A", "P", "R"):
+        for f in ("A", "P", "R", "L", "U"):
             mj, mt = getattr(lj, f), getattr(lt, f)
             assert (mj is None) == (mt is None), f
             if mj is None:
@@ -103,7 +153,8 @@ def test_dia_diag_stats_matches_jax():
 
 @pytest.mark.parametrize("smoother,coarse_solver", [
     ("chebyshev", "lu"), ("jacobi", "lu"), ("l1jacobi", "lu"),
-    ("chebyshev", "smooth")])        # smooth: l1-Jacobi coarse fallback
+    ("chebyshev", "smooth"),         # smooth: l1-Jacobi coarse fallback
+    ("gs2", "lu")])                  # triangles carried over from JAX
 @pytest.mark.parametrize("shape", ["V", "W", "F"])
 def test_cycle_matches_jax_on_identical_data(shape, smoother, coarse_solver):
     p = _deep_params(band_dtype="float32", cycle=shape, smoother=smoother,
@@ -114,6 +165,9 @@ def test_cycle_matches_jax_on_identical_data(shape, smoother, coarse_solver):
     T = device.hierarchy_from_jax(J, device="cpu")
     assert [type(l.A).__name__ for l in T.levels] == \
         ["DiaMatrix", "EllMatrix", "EllMatrix", "DenseMatrix"]
+    if smoother == "gs2":
+        assert [type(l.L).__name__ for l in T.levels] == \
+            ["DiaMatrix", "EllMatrix", "EllMatrix", "NoneType"]
     n_pad = T.levels[0].n_pad
     b = np.zeros(n_pad, np.float32)
     b[: hier.levels[0].n] = np.random.default_rng(0).standard_normal(
@@ -201,13 +255,10 @@ def test_device_bytes_counts_shared_bands_once():
     assert total > solver.A64.bands.nbytes + L0.bands.nbytes
 
 
-def test_unported_paths_raise():
+def test_solver_needs_a_device_and_a_known_method():
     A = poisson2d(48)            # above coarse_size: a real cycle
-    b = np.ones(A.shape[0])
-    with pytest.raises(NotImplementedError):
-        AMGSolver(A, AMGParams(), KrylovParams(method="bicgstab"),
-                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        AMGSolver(A, AMGParams(smoother="gs2"), device="cpu").solve(b)
     with pytest.raises(TypeError):
         AMGSolver(A, AMGParams())            # no device: no silent CPU
+    with pytest.raises(ValueError, match="Krylov method"):
+        AMGSolver(A, AMGParams(), KrylovParams(method="gmres"),
+                  device="cpu")
