@@ -14,8 +14,10 @@ Phases (any failure raises, and the script exits non-zero):
      shapes (the DIA operators, every tail with the same bits twice and
      the instantiation and halo it ran, and every ELL-T operator of the
      hierarchy, each at the launch shape the solve gives it): max errors,
-     median device times, the least time the card could take (bound_ms)
-     and the time of one PyTorch call computing the same function
+     median device times, the least time the card could take (bound_ms
+     at the data sheet's memory rate; bound_measured_ms, in the kernels
+     line, at the copy rate measured at the end of the run) and the time
+     of one PyTorch call computing the same function
      (library_ms: a cuSPARSE CSR SpMV, which the port never calls);
   4. the flagship solve, poisson3d(192) (7,077,888 unknowns), through
      AMGSolver, with kernel launch counts from that solve, the residual
@@ -43,7 +45,13 @@ Phases (any failure raises, and the script exits non-zero):
      BiCGStab count moves with rounding in the JAX package itself, to
      the port's plain versions' count at full size); and a stationary
      (method "amg") solve and a gs2-BiCGStab solve at small sizes on the
-     card held against the CPU.
+     card held against the CPU;
+  7. the bench entry points as a user runs them, in child processes:
+     bench_torch.py (the flagship at full size, built and warmed by
+     itself, its line held to ok, 12 iterations / 2 passes and host
+     relres <= 1e-8, its own launch counts over its timed solves) and
+     kernel_bench_torch.py (every level operator, transfer and the
+     V-cycle against the measured copy rate; it must exit 0).
 The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
@@ -52,7 +60,6 @@ errors, times and launch counts; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -61,8 +68,6 @@ import numpy as np
 
 REL_TOL = 1e-5      # kernel vs plain version: same inputs, fp32 sums in
                     # another order (and FMA contraction) on both sides
-TIMED_RUNS = 25
-SLEEP_CYCLES = 50_000_000   # ~30 ms of device sleep ahead of timed runs
 SMALL_E3D = 8               # elasticity3d size of the card-vs-CPU check
 REPEATS = 3                 # warm solves timed after the counted one
 # the least time the card could take (H100 SXM data sheet): device memory
@@ -85,43 +90,6 @@ def run(cmd):
                           check=True).stdout.strip()
 
 
-def l2_flush_buffer(nbytes):
-    """A buffer of twice the card's L2 when `nbytes` of operands would fit
-    in L2 (so repeated launches would find them there), else None."""
-    import torch
-    l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    if nbytes >= l2:
-        return None
-    return torch.ones(2 * l2 // 4, device="cuda")
-
-
-def timed_ms(fn, queued=True, flush=None):
-    """Median of TIMED_RUNS launches, each between two CUDA events.  With
-    `queued`, the runs wait behind a device sleep until the host has
-    queued them all, so the events see device time alone; without it,
-    each run is timed as the host launches it, Python and launch overhead
-    included (the floor of a small kernel inside the solve).  `flush`: a
-    buffer read (outside the events) before every run, which evicts the
-    previous run's operands from L2."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    if queued:
-        torch.cuda._sleep(SLEEP_CYCLES)
-    events = []
-    for _ in range(TIMED_RUNS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        if flush is not None:
-            flush.sum()
-        e0.record()
-        fn()
-        e1.record()
-        events.append((e0, e1))
-    torch.cuda.synchronize()
-    return statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
-
-
 def _errors(name, got, want):
     """(max abs error, normwise relative error) of got against want."""
     import torch
@@ -142,13 +110,15 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
     """Kernel output(s) against the plain version's; raise above REL_TOL.
     Records max_abs_err, max_rel_err (normwise), and when timed both
     median device times and the kernel's time per call as the host
-    launches it.  `work` (real_bytes, padded_bytes, flops) gives bound_ms;
+    launches it.  `work` (real_bytes, padded_bytes, flops; bytes as
+    utils/accounting.op_bytes counts them) gives bound_ms;
     `library` = (note, {dtype: zero-arg call}) times one PyTorch call of
     the same function (its output held to the plain version too), or says
     why there is none.  `same_bits`: a second launch must give the same
     bits.  `flush`: see timed_ms (device times only).  `extra`: more keys
     for the record."""
     import torch
+    from sparsh_amg_tpu_torch.utils.timing import timed_ms
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     abs_err, rel_err = _errors(name, got, want)
@@ -168,7 +138,7 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
     if time_it and work is not None:
         real, padded, flops = work
         t_bytes, t_ops = real / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-        rec.update(real_bytes=real, padded_bytes=padded,
+        rec.update(real_bytes=real, padded_bytes=padded, flops=flops,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    TB_per_s_real=real / rec["ms"] / 1e9)
@@ -287,6 +257,9 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
     level's own inverse diagonal, else a random one."""
     import torch
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
+    from sparsh_amg_tpu_torch.ops.formats import DiaMatrix
+    from sparsh_amg_tpu_torch.utils.accounting import op_bytes
+    from sparsh_amg_tpu_torch.utils.timing import l2_flush_buffer
     n = bands.shape[1]
     inst = {"instantiation": K.instantiation(bands, offsets)}
     print(f"dia {tag}: {bands.shape[0]} bands {tuple(offsets)}, "
@@ -316,11 +289,14 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
          P(K.CHEB, bands, offsets, d, b=r, dinv=dinv, x=x, s0=0.3, s1=0.9)),
     ]
     dt = "bf16" if bands.dtype == torch.bfloat16 else "fp32"
-    nz = int(torch.count_nonzero(bands)) if time_it else 0
+    if time_it:
+        # one SpMV's bytes (x and y), then the tail's other vectors
+        ob = op_bytes(DiaMatrix(bands, tuple(offsets), n_rows, n_rows))
+        nz = int(torch.count_nonzero(bands))
     for name, kern, plain in cases:
-        nvec = DIA_VECTORS[name]
-        work = (nz * bands.element_size() + 4 * n_rows * nvec,
-                bands.nbytes + 4 * n * nvec, 2 * nz)
+        extra_vec = DIA_VECTORS[name] - 2
+        work = (ob.real + 4 * n_rows * extra_vec,
+                ob.padded + 4 * n * extra_vec, 2 * nz) if time_it else None
         t = time_it and (timed is None or name in timed)
         lib = (dia_library(bands, offsets, n_rows, x)
                if t and name == "dia_spmv" else None)
@@ -334,6 +310,7 @@ def ell_case(tag, M, rng, results, time_it, same_bits=False):
     import torch
     from sparsh_amg_tpu_torch.ops.ell_spmv import ell_plain, ell_spmv
     from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    from sparsh_amg_tpu_torch.utils.accounting import op_bytes
     x = torch.from_numpy(
         rng.standard_normal(max(M.n_cols, 1)).astype(np.float32)).to(
         M.cols.device)
@@ -341,11 +318,7 @@ def ell_case(tag, M, rng, results, time_it, same_bits=False):
     g, s = launch_shape(M.n_rows, M.k, M.cols.device)
     work = lib = None
     if time_it:
-        slots = int(M.lens.sum())
-        work = (slots * (M.vals.element_size() + 4) + 4 * M.n_cols
-                + 4 * M.n_rows,
-                M.vals.nbytes + M.cols.nbytes + 4 * M.n_pad + 4 * M.n_cols,
-                2 * slots)
+        work = (*op_bytes(M), 2 * int(M.lens.sum()))
         lib = ell_library(M, x)
     return compare(f"ell_spmv {tag} {dt} K={M.k} n={M.n_rows} "
                    f"n_pad={M.n_pad} G={g} S={s}",
@@ -360,17 +333,14 @@ def block_case(tag, M, rng, results, time_it, same_bits=False):
     from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
                                                     block_ell_spmv)
     from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    from sparsh_amg_tpu_torch.utils.accounting import op_bytes
     x = torch.from_numpy(rng.standard_normal(max(M.n_pad, M.n_cols)).astype(
         np.float32)).to(M.cols.device)
     dt = "bf16" if M.vals.dtype == torch.bfloat16 else "fp32"
     g, s = launch_shape(M.n_rows, M.k, M.cols.device)
     work = lib = None
     if time_it:
-        node_slots = int(M.lens.sum())
-        work = (node_slots * (4 + M.bs * M.bs * M.vals.element_size())
-                + 4 * M.n_cols + 4 * M.n_rows,
-                M.vals.nbytes + M.cols.nbytes + 4 * M.n_pad + 4 * M.n_cols,
-                2 * node_slots * M.bs * M.bs)
+        work = (*op_bytes(M), 2 * int(M.lens.sum()) * M.bs * M.bs)
         lib = block_library(M, x)
     return compare(f"block_ell_spmv {tag} {dt} bs={M.bs} K={M.k} "
                    f"n={M.n_rows} n_pad={M.n_pad} G={g} S={s}",
@@ -452,19 +422,6 @@ def operator_cases(tag, levels, rng, results, timed):
             ell_case(label, M, rng, results, time_it)
 
 
-def counted(fn):
-    """fn() with every kernel wrapper's launch count set to 0 just before
-    and read just after."""
-    from sparsh_amg_tpu_torch.ops import dia_spmv as dia_mod
-    from sparsh_amg_tpu_torch.ops.block_ell import block_ell_spmv
-    from sparsh_amg_tpu_torch.ops.ell_spmv import ell_spmv
-    wrappers = (*dia_mod.WRAPPERS, ell_spmv, block_ell_spmv)
-    for w in wrappers:
-        w.launches = 0
-    out = fn()
-    return out, {w.__name__: w.launches for w in wrappers}
-
-
 def calls_per_operator(fn, levels):
     """Calls of the DIA, ELL and block SpMVs in fn(), by operator
     ("L<i> A/P/R/L/U"), counted at the layouts' spmv methods (the fused
@@ -501,6 +458,7 @@ def systems_phase(dim, rng, results, dev):
     1e-8.  Returns the solve's launch counts."""
     import torch
     from sparsh_amg_tpu_torch import AMGSolver, systems
+    from sparsh_amg_tpu_torch.ops import counted
     from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
     from sparsh_amg_tpu_torch.ops.formats import DiaMatrix, EllMatrix
     from sparsh_amg_tpu_torch.utils.meminfo import device_memory_stats
@@ -671,6 +629,7 @@ def config_phase(name, rng, results, dev):
     Returns the solve's launch counts."""
     import torch
     from sparsh_amg_tpu_torch import AMGSolver, configs
+    from sparsh_amg_tpu_torch.ops import counted
     from sparsh_amg_tpu_torch.ops.formats import DenseMatrix, DiaMatrix
     from sparsh_amg_tpu_torch.utils.meminfo import device_memory_stats
     t_phase = time.perf_counter()
@@ -777,6 +736,48 @@ def config_small_checks(dev):
         assert dx <= 1e-6, dx
 
 
+def child_json(script, *args, timeout=600):
+    """(exit code, JSON lines) of `python3 script args` run from this
+    checkout's root; stderr's tail is printed when it fails."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run([sys.executable, os.path.join(root, script), *args],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=timeout)
+    if p.returncode:
+        print(f"{script} exited {p.returncode}:\n{p.stderr[-4000:]}",
+              flush=True)
+    return p.returncode, [json.loads(line) for line in p.stdout.splitlines()
+                          if line.startswith("{")]
+
+
+def bench_phase(gpu_name):
+    """Phase 7: bench_torch.py on the flagship and kernel_bench_torch.py,
+    each as a child process.  Returns the bench's launch counts."""
+    from sparsh_amg_tpu_torch import flagship
+    rc, lines = child_json("bench_torch.py")
+    out = lines[-1]
+    print(json.dumps(out), flush=True)
+    ref = flagship.REFERENCE_192
+    assert rc == 0 and out["ok"], out.get("checks")
+    assert (out["iterations"], out["refine_passes"]) == \
+        (ref["iterations"], ref["refine_passes"]), out
+    assert out["relres_host_fp64"] <= 1e-8, out
+    assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
+    for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
+                 "dia_cheb_step", "ell_spmv"):
+        assert out["launches"][name] > 0, \
+            f"{name} not launched during the bench's solves"
+    rc, rows = child_json("kernel_bench_torch.py")
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    assert rc == 0, f"kernel_bench_torch.py exited {rc}"
+    assert {"spmv_l0", "P_l0", "R_l0", "vcycle"} <= {r["kernel"]
+                                                     for r in rows}
+    assert all(r["hbm_frac"] <= 1.0 for r in rows if "hbm_frac" in r)
+    return out["launches"]
+
+
 def main(nside=192, dev="cuda"):
     # -- 1. environment ----------------------------------------------------
     t_start = time.perf_counter()
@@ -786,8 +787,8 @@ def main(nside=192, dev="cuda"):
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke "
                            "test needs an NVIDIA GPU")
-    gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
-                    "--format=csv,noheader"])
+    from sparsh_amg_tpu_torch.utils.meminfo import card_name_and_power_limit
+    gpu_name, _, gpu_line = card_name_and_power_limit()
     print(gpu_line, flush=True)
     from sparsh_amg_tpu_torch import _build
     print(run([_build.nvcc_path(), "--version"]).splitlines()[-1], flush=True)
@@ -802,6 +803,7 @@ def main(nside=192, dev="cuda"):
 
     from sparsh_amg_tpu_torch import AMGSolver, flagship
     from sparsh_amg_tpu_torch._native import get_lib
+    from sparsh_amg_tpu_torch.ops import counted
     from sparsh_amg_tpu_torch.models import poisson3d
     from sparsh_amg_tpu_torch.utils.meminfo import device_memory_stats
     from sparsh_amg_tpu_torch.ops.block_ell import csr_to_block_ell
@@ -929,14 +931,27 @@ def main(nside=192, dev="cuda"):
     config_small_checks(dev)
     print(f"phase_s 6 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # -- 7. the bench entry points -------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    paths.append(bench_phase(gpu_name))
+    print(f"phase_s 7 {time.perf_counter() - t0:.1f}", flush=True)
+
     # -- result lines ------------------------------------------------------
     every = small + flag + sysk + cfgk
     total = {k: sum(p[k] for p in paths) for k in launches}
+    # the bounds again at the copy rate measured on this card
+    from sparsh_amg_tpu_torch.utils.timing import copy_bandwidth
+    copy_bw = copy_bandwidth(dev)
+    for c in every:
+        if "real_bytes" in c:
+            c["bound_measured_ms"] = max(c["real_bytes"] / copy_bw,
+                                         c["flops"] / FP32_FLOPS_PER_S) * 1e3
 
     keep = ("case", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by",
-            "library_ms", "library_bf16_ms", "library_note", "real_bytes",
-            "padded_bytes", "max_rel_err", "same_bits", "instantiation",
-            "l2_flushed")
+            "bound_measured_ms", "library_ms", "library_bf16_ms",
+            "library_note", "real_bytes", "padded_bytes", "max_rel_err",
+            "same_bits", "instantiation", "l2_flushed")
 
     def entry(name, source, cases, timed, replaces):
         errs = [c["max_abs_err"] for c in every
@@ -950,7 +965,10 @@ def main(nside=192, dev="cuda"):
                 "launches": sum(total[c] for c in cases),
                 "max_abs_err": max(errs), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "bound_by": t["bound_by"],
+                "bound_measured_ms": t["bound_measured_ms"],
+                "copy_bw_GBs": copy_bw / 1e9,
+                "library_ms": t["library_ms"],
                 "case": t["case"],
                 "cases": [{k: c[k] for k in keep if k in c}
                           for c in timed_cases]}

@@ -1,14 +1,15 @@
 #!/usr/bin/env python
 """Reference counts of the seven scalar configurations (configs.py) on the
 CPU: the JAX package's solver with ``loop_mode="device"``, or with
-``--port`` the PyTorch port's plain versions, at full size.  Each run
+``--port`` the PyTorch port (its plain versions on the CPU, its CUDA
+kernels with ``--device cuda``), at full size.  Each run
 primes the solver at tol 1e-2 and then solves to the configured 1e-8, as
 ``scripts/run_configs_tpu.py:167-168`` does, and prints one JSON line:
 iterations, refinement passes, the per-pass history and relres
 recomputed in fp64.
 
     JAX_PLATFORMS=cpu python scripts/config_reference_counts.py NAME \\
-        [--port] [--seed S] [--compensated-dots] [--size M]
+        [--port [--device cuda]] [--seed S] [--compensated-dots] [--size M]
 
 A full-size configuration needs 1-4 GB of host memory and minutes of CPU
 (the W-cycle BiCGStab ones most); run one configuration per process.
@@ -31,6 +32,8 @@ def main():
     ap.add_argument("--port", action="store_true",
                     help="the port's plain versions instead of the JAX "
                          "package")
+    ap.add_argument("--device", default="cpu",
+                    help="the port's device (with --port): cpu or cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="rng seed of the right-hand side (0: the "
                          "configured one)")
@@ -38,6 +41,8 @@ def main():
     ap.add_argument("--size", type=int, default=None,
                     help="grid side (default: the configuration's)")
     args = ap.parse_args()
+    if args.device != "cpu" and not args.port:
+        ap.error("--device applies to the port (--port) only")
     from sparsh_amg_tpu_torch import configs
     A, ns = configs.problem(args.name, args.size)
     p = configs.params(args.name)
@@ -47,7 +52,7 @@ def main():
     t0 = time.perf_counter()
     if args.port:
         from sparsh_amg_tpu_torch import AMGSolver
-        solver = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
+        solver = AMGSolver(A, p, kr, nullspace=ns, device=args.device)
     else:
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -62,7 +67,8 @@ def main():
     solver.solve(rhs, tol=1e-2)
     res = solver.solve(rhs)
     print(json.dumps({
-        "name": args.name, "solver": "port cpu" if args.port else "jax cpu",
+        "name": args.name,
+        "solver": f"port {args.device}" if args.port else "jax cpu",
         "seed": args.seed, "compensated_dots": args.compensated_dots,
         "n": A.shape[0], "nnz": int(A.nnz), "iterations": res.iterations,
         "refine_passes": res.refine_passes, "history": res.history,

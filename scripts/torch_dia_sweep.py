@@ -7,10 +7,11 @@ streaming rate, on one GPU.
 For three band layouts -- 3-D Poisson at 192^3 (7 bands, bf16 and fp32)
 and 2-D elasticity at 512^2 (21 bands, fp32) -- it times SPMV and the
 Chebyshev step on random tables of 2^17 to 2^23 rows with the layout's
-offsets, L2 flushed before every launch (chip_smoke.py's timing: median
-of 25 launches queued behind a device sleep), and fits ms = fixed +
-bytes / rate over the sizes.  One JSON line per layout and tail.
---root as in torch_dia_bench.py.
+offsets, L2 flushed before every launch (the device-time harness of
+``sparsh_amg_tpu_torch/utils/timing.py``: median of 25 launches queued
+behind a device sleep), and fits ms = fixed + bytes / rate over the
+sizes.  One JSON line per layout and tail.  --root as in
+torch_dia_bench.py; the harness always comes from this script's checkout.
 """
 import argparse
 import importlib.util
@@ -29,9 +30,17 @@ LAYOUTS = {
 }
 
 
-def _smoke():
+# vectors each tail reads or writes once: x, y; and x, d, r, dinv, and
+# the three outputs of the Chebyshev step
+VECTORS = {"spmv": 2, "cheb": 7}
+
+
+def _timing():
+    """utils/timing.py of this script's checkout, loaded by path (it
+    imports nothing of the package), whichever checkout --root names."""
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+        "sparsh_timing", os.path.join(HERE, "sparsh_amg_tpu_torch", "utils",
+                                      "timing.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -41,7 +50,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     root = os.path.abspath(ap.parse_args().root)
-    smoke = _smoke()
+    timing = _timing()
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -50,15 +59,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
-    flush = smoke.l2_flush_buffer(0)
+    flush = timing.l2_flush_buffer(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for layout, dt in (("p3d(192)", torch.bfloat16),
                        ("p3d(192)", torch.float32),
                        ("e2d(512)", torch.float32)):
         offs = LAYOUTS[layout]
         for tail in ("spmv", "cheb"):
-            nvec = smoke.DIA_VECTORS["dia_spmv" if tail == "spmv"
-                                     else "dia_cheb_step"]
+            nvec = VECTORS[tail]
             sizes, times = [], []
             for n in ROWS:
                 bands = torch.randn(len(offs), n, device="cuda",
@@ -69,7 +77,7 @@ def main():
                         else (lambda: K.dia_cheb_step(bands, x, d, r, dinv,
                                                       0.3, 0.9, offs)))
                 sizes.append(bands.nbytes + 4 * n * nvec)
-                times.append(smoke.timed_ms(call, flush=flush))
+                times.append(timing.timed_ms(call, flush=flush))
                 del bands, x, d, r, dinv
             slope, fixed = np.polyfit(sizes, times, 1)
             print(json.dumps({

@@ -131,11 +131,12 @@ def get_lib():
         lib.set_omp_threads.argtypes = [_i64]
         lib.omp_fork_prepare.restype = None
         lib.omp_fork_prepare.argtypes = []
-        lib.stable_counting_order.restype = None
+        # 0, or 1 for a key (row) out of range: see the wrappers below
+        lib.stable_counting_order.restype = _i32
         lib.stable_counting_order.argtypes = [
             _i64, _ptr(np.int64), _i64, _ptr(np.int64),
         ]
-        lib.coo_to_csr_pattern.restype = None
+        lib.coo_to_csr_pattern.restype = _i32
         lib.coo_to_csr_pattern.argtypes = [
             _i64, _i64, _ptr(np.int64), _ptr(np.int64), _ptr(np.int64),
             _ptr(np.int32),
@@ -403,3 +404,40 @@ def csr_arrays(A):
     indices = np.ascontiguousarray(A.indices, dtype=np.int32)
     data = np.ascontiguousarray(A.data, dtype=np.float64)
     return indptr, indices, data
+
+
+def _lib_or_raise(entry: str):
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"{entry}: the native library did not build")
+    return lib
+
+
+def stable_counting_order(keys: np.ndarray, nkeys: int) -> np.ndarray:
+    """The order that sorts int64 `keys` (each in [0, nkeys)) stably, from
+    the native counting sort; ValueError for a key out of range."""
+    lib = _lib_or_raise("stable_counting_order")
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    order = np.empty(keys.size, dtype=np.int64)
+    if lib.stable_counting_order(keys.size, keys, int(nkeys), order):
+        raise ValueError(f"stable_counting_order: a key lies outside "
+                         f"[0, {int(nkeys)})")
+    return order
+
+
+def coo_to_csr_pattern(nr: int, rows: np.ndarray, cols: np.ndarray):
+    """(indptr int64, cols int32) of the CSR pattern of COO (rows, cols)
+    with nr rows, each row's columns sorted; ValueError for a row outside
+    [0, nr)."""
+    lib = _lib_or_raise("coo_to_csr_pattern")
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    if rows.size != cols.size:
+        raise ValueError("coo_to_csr_pattern: rows and cols differ in size")
+    indptr = np.zeros(int(nr) + 1, dtype=np.int64)
+    out_cols = np.empty(rows.size, dtype=np.int32)
+    if lib.coo_to_csr_pattern(int(nr), rows.size, rows, cols, indptr,
+                              out_cols):
+        raise ValueError(f"coo_to_csr_pattern: a row lies outside "
+                         f"[0, {int(nr)})")
+    return indptr, out_cols

@@ -580,35 +580,29 @@ void pmis_round_fassign(int64_t nf, const int32_t* frontier,
 // equal keys keep input order.  Replaces np.argsort(kind="stable") in
 // the blocked-setup exchanges (1.0 s -> ~50 ms at 5.3M keys/rank; the
 // key domains there are tiny: rank owners <= 64, coarse-local rows).
-void stable_counting_order(int64_t n, const int64_t* keys, int64_t nkeys,
-                           int64_t* order) {
-  // Precondition: every key in [0, nkeys).  These are exported C symbols
-  // with indexed writes — fail loudly instead of corrupting the heap.
+// Returns 0, or 1 (order untouched) when a key lies outside [0, nkeys):
+// the writes are indexed by key, so a bad key is refused before any of
+// them, and the caller raises instead of the process aborting.
+int stable_counting_order(int64_t n, const int64_t* keys, int64_t nkeys,
+                          int64_t* order) {
   for (int64_t i = 0; i < n; ++i)
-    if (keys[i] < 0 || keys[i] >= nkeys) {
-      std::fprintf(stderr,
-                   "stable_counting_order: key %lld out of [0, %lld)\n",
-                   (long long)keys[i], (long long)nkeys);
-      std::abort();
-    }
+    if (keys[i] < 0 || keys[i] >= nkeys) return 1;
   std::vector<int64_t> offs(nkeys + 1, 0);
   for (int64_t i = 0; i < n; ++i) ++offs[keys[i] + 1];
   for (int64_t k = 0; k < nkeys; ++k) offs[k + 1] += offs[k];
   for (int64_t i = 0; i < n; ++i) order[offs[keys[i]]++] = i;
+  return 0;
 }
 
 // COO pattern -> CSR with sorted rows (the blocked PMIS ST build:
 // scipy's coo_tocsr + sort_indices was ~0.7 s/rank at 5.3M entries).
-// indptr must be zero-initialized (nr+1).
-void coo_to_csr_pattern(int64_t nr, int64_t nnz, const int64_t* rows,
-                        const int64_t* cols, int64_t* indptr,
-                        int32_t* out_cols) {
+// indptr must be zero-initialized (nr+1).  Returns 0, or 1 (outputs
+// untouched) when a row lies outside [0, nr).
+int coo_to_csr_pattern(int64_t nr, int64_t nnz, const int64_t* rows,
+                       const int64_t* cols, int64_t* indptr,
+                       int32_t* out_cols) {
   for (int64_t k = 0; k < nnz; ++k)
-    if (rows[k] < 0 || rows[k] >= nr) {
-      std::fprintf(stderr, "coo_to_csr_pattern: row %lld out of [0, %lld)\n",
-                   (long long)rows[k], (long long)nr);
-      std::abort();
-    }
+    if (rows[k] < 0 || rows[k] >= nr) return 1;
   for (int64_t k = 0; k < nnz; ++k) ++indptr[rows[k] + 1];
   for (int64_t i = 0; i < nr; ++i) indptr[i + 1] += indptr[i];
   std::vector<int64_t> cur(indptr, indptr + nr);
@@ -617,6 +611,7 @@ void coo_to_csr_pattern(int64_t nr, int64_t nnz, const int64_t* rows,
 #pragma omp parallel for schedule(dynamic, 1024)
   for (int64_t i = 0; i < nr; ++i)
     std::sort(out_cols + indptr[i], out_cols + indptr[i + 1]);
+  return 0;
 }
 
 // Extended-local-index maps for the blocked ghost spaces: one parallel

@@ -315,3 +315,29 @@ def test_benchmark_op_times_the_card(cuda):
     x = torch.ones(1 << 24, device=cuda)
     s = benchmark_op(lambda v: v * 2, x, iters=5)
     assert 0.0 < s < 0.1
+
+
+def test_bench_on_the_card(cuda):
+    """bench_torch.py at 48^3 on the card: its checks pass, the copy rate
+    is measured below the data sheet's, and the solves launched the
+    flagship's kernels."""
+    import bench_torch
+    out = bench_torch.main(["--n", "48"])
+    assert out["ok"] and out["backend"] == "cuda", out["checks"]
+    assert out["device_name"] == torch.cuda.get_device_name(0)
+    assert 0.0 < out["hbm_bw_GBs"] <= out["hbm_bw_spec_GBs"]
+    assert 0.0 < out["hbm_fraction"] <= 1.0
+    assert out["solve_peak_bytes"] > 0 and out["bytes_limit"] > 0
+    for name in ("dia_spmv", "dia_cheb_step", "dia_residual", "ell_spmv"):
+        assert out["launches"][name] > 0, name
+
+
+def test_kernel_bench_on_the_card(cuda):
+    """kernel_bench_torch.py at 48^3 on the card: every row under the
+    measured copy rate."""
+    import kernel_bench_torch
+    out = kernel_bench_torch.main(["--n", "48"])
+    assert out["ok"] and out["copy_bw"]["GBs"] > 0
+    assert {"spmv_l0", "P_l0", "R_l0", "vcycle"} <= {
+        r["kernel"] for r in out["rows"]}
+    assert all(0.0 < r["hbm_frac"] <= 1.0 for r in out["rows"])

@@ -140,3 +140,38 @@ def test_copied_model_families_match_jax(family):
         assert (pm.name, pm.meta) == (pr.name, pr.meta)
         _same_csr(pm.A, pr.A, f"get_problem {name}")
         np.testing.assert_array_equal(pm.b, pr.b)
+
+
+@pytest.mark.parametrize("entry", ["stable_counting_order",
+                                   "coo_to_csr_pattern"])
+def test_native_entries_raise_on_out_of_range_keys(entry):
+    """The two native entries of the blocked setup refuse a key (row) out
+    of range with a ValueError, where they used to abort the process, and
+    the library still answers afterwards."""
+    from sparsh_amg_tpu_torch import _native
+    assert _native.get_lib() is not None
+    keys = np.array([2, 0, 1, 0, 2], dtype=np.int64)
+    cols = np.array([4, 1, 3, 0, 2], dtype=np.int64)
+
+    def good():
+        if entry == "stable_counting_order":
+            np.testing.assert_array_equal(
+                _native.stable_counting_order(keys, 3),
+                np.argsort(keys, kind="stable"))
+        else:
+            indptr, got = _native.coo_to_csr_pattern(3, keys, cols)
+            want = sp.csr_matrix((np.ones(5), (keys, cols)), shape=(3, 5))
+            want.sort_indices()
+            np.testing.assert_array_equal(indptr, want.indptr)
+            np.testing.assert_array_equal(got, want.indices)
+    good()
+    for bad in (-1, 3):
+        k = keys.copy()
+        k[3] = bad
+        with pytest.raises(ValueError, match=rf"{entry}: .*\[0, 3\)"):
+            if entry == "stable_counting_order":
+                _native.stable_counting_order(k, 3)
+            else:
+                _native.coo_to_csr_pattern(3, k, cols)
+    good()
+

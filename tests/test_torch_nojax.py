@@ -93,10 +93,12 @@ def _imports(path):
 
 def test_no_port_module_imports_jax():
     """Neither jax nor the JAX package (any import rooted at
-    sparsh_amg_tpu), in every module of the port and in chip_smoke.py."""
+    sparsh_amg_tpu), in every module of the port, in chip_smoke.py and in
+    the port's bench entry points."""
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+              ROOT / "kernel_bench_torch.py"]
     assert len(files) >= 30
     assert not (PORT / "_host.py").exists()
     for f in files:
