@@ -5,6 +5,7 @@ NVIDIA GPU: the counterpart of ``bench.py`` for the port.
     python3 bench_torch.py                       # flagship, poisson3d(192)
     python3 bench_torch.py --config NAME [--n M] # an acceptance configuration
     python3 bench_torch.py --n 16 --device cpu   # plain versions, CPU
+    python3 bench_torch.py --dist N [--dist-backend nccl|gloo]
 
 The flagship is ``bench.py``'s (``flagship.py``): 3-D 7-point Poisson,
 PMIS with a pmis2 aggressive first level, ext+i interpolation, bf16
@@ -37,7 +38,17 @@ reference count exists (the flagship at 192, each configuration at its
 own size, tol 1e-8), the reference's refinement passes and its iterations
 within the slack of PERF.md §2; on the card also a measured copy rate no
 higher than the data sheet's.  A failed check prints the line with
-``"ok": false`` and exits 1.  ``--dist`` waits for the distributed slice.
+``"ok": false`` and exits 1.
+
+``--dist N`` (the counterpart of ``bench.py --dist``) solves with
+``DistAMGSolver`` on N ranks, one process each: with N > 1 this process
+starts N rank processes of the same command, and rank 0 prints the line,
+with ``dist_ranks`` and ``dist_backend`` (nccl, one card per rank, the
+default on cuda; gloo, ranks sharing a card or the CPU).  Every rank
+holds the global matrix and runs the global setup, then freezes its own
+block.  The checks and reference are the serial line's; byte counts and
+the memory-rate keys are priced on rank 0's layouts with one rank, and
+null with several (as ``bench.py``'s distributed line prices nnz only).
 """
 from __future__ import annotations
 
@@ -62,7 +73,11 @@ def build_argparser() -> argparse.ArgumentParser:
                          "--config: default the configuration's)")
     ap.add_argument("--tol", type=float, default=1e-8)
     ap.add_argument("--dist", type=int, default=0, metavar="N",
-                    help="row-shard over N devices (not ported yet)")
+                    help="row-shard over N ranks, one process each")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="--dist process-group backend (default nccl on "
+                         "cuda, gloo on cpu)")
     ap.add_argument("--coarsening", default=None,
                     choices=["rs", "pmis", "aggregation"],
                     help="flagship only: rs and pmis both run the PMIS "
@@ -173,17 +188,22 @@ def checks(out: dict, tol: float) -> dict:
 
 def main(argv=None) -> dict:
     ap = build_argparser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    if args.dist:
-        raise NotImplementedError(
-            "--dist: the distributed solver is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5)")
     import torch
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     if cuda and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device "
                            "(pass --device cpu to run on the CPU)")
+    rank0 = True
+    if args.dist:
+        from sparsh_amg_tpu_torch.parallel import multihost
+        out0, dev, rank0 = multihost.launch_or_join(
+            args.dist, [__file__, *argv], args.dist_backend, dev)
+        if out0 is not None:
+            sys.stdout.write(out0)
+            return multihost.last_json(out0)
     from sparsh_amg_tpu_torch import AMGSolver, configs
     from sparsh_amg_tpu_torch.ops import counted
     from sparsh_amg_tpu_torch.setup.hierarchy import amg_setup
@@ -210,7 +230,16 @@ def main(argv=None) -> dict:
     hier = amg_setup(A, params, nullspace=ns)
     amg_setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    solver = AMGSolver(A, params, krylov, hierarchy=hier, device=dev)
+    if args.dist:
+        from sparsh_amg_tpu_torch.parallel import DistAMGSolver
+        solver = DistAMGSolver(A, params=params, krylov=krylov,
+                               hierarchy=hier, device=dev)
+        # byte prices from this rank's layouts stand for the whole solve
+        # only when it is the only rank
+        priced = solver.ranks.size == 1
+    else:
+        solver = AMGSolver(A, params, krylov, hierarchy=hier, device=dev)
+        priced = True
     to_device_s = time.perf_counter() - t0
     setup_peak = meminfo.device_memory_stats(dev).get("peak_bytes_in_use")
 
@@ -238,27 +267,30 @@ def main(argv=None) -> dict:
     relres_host = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
 
     nnz = int(A.nnz)
-    work = accounting.work_per_iteration(solver.hierarchy, solver.device,
-                                         params, method=krylov.method,
-                                         mv_op=solver._krylov_op)
+    work = accounting.work_per_iteration(
+        solver.hierarchy, solver.device if priced else None, params,
+        method=krylov.method, mv_op=solver._krylov_op if priced else None)
     eff_nnz = work.effective_nnz(res.iterations, res.refine_passes)
     solve_s = max(res.solve_time, 1e-12)
     nnz_per_s = eff_nnz / solve_s
-    bytes_per_nnz = accounting.op_bytes(solver._krylov_op).real / nnz
+    bytes_per_nnz = (accounting.op_bytes(solver._krylov_op).real / nnz
+                     if priced else None)
 
     bw = bw_spec = name = watts = None
-    if cuda:
+    if cuda and rank0:
         bw = copy_bandwidth(dev)
         bw_spec = meminfo.hbm_spec_bw(dev)
         name, watts, _ = meminfo.card_name_and_power_limit()
     ratio = lambda num, den: (None if num is None or den is None
                               else num / den)
-    bytes_rate = work.bytes_per_iter * max(res.iterations, 1) / solve_s
+    bytes_rate = (work.bytes_per_iter * max(res.iterations, 1) / solve_s
+                  if priced else None)
+    nnz_rate = None if bytes_per_nnz is None else nnz_per_s * bytes_per_nnz
     stats = meminfo.device_memory_stats(dev)
 
     out = {
         "metric": metric, "value": nnz_per_s, "unit": "nnz/s",
-        "vs_baseline": ratio(nnz_per_s * bytes_per_nnz, bw),
+        "vs_baseline": ratio(nnz_rate, bw),
         "gflops": 2.0 * eff_nnz / solve_s / 1e9,
         "problem": label, "n": int(A.shape[0]), "nnz": nnz,
         "iterations": res.iterations, "refine_passes": res.refine_passes,
@@ -276,9 +308,9 @@ def main(argv=None) -> dict:
         "hbm_bw_GBs": ratio(bw, 1e9), "hbm_bw_spec_GBs": ratio(bw_spec, 1e9),
         "bytes_per_nnz": bytes_per_nnz,
         "speed_of_light_nnz_per_s": ratio(bw, bytes_per_nnz),
-        "vs_spec": ratio(nnz_per_s * bytes_per_nnz, bw_spec),
+        "vs_spec": ratio(nnz_rate, bw_spec),
         "spmv_equiv_per_iter": work.spmv_equiv,
-        "bytes_per_iter": work.bytes_per_iter,
+        "bytes_per_iter": work.bytes_per_iter if priced else None,
         "hbm_fraction": ratio(bytes_rate, bw),
         "hbm_fraction_spec": ratio(bytes_rate, bw_spec),
         "backend": dev.type, "device_name": name, "power_limit_w": watts,
@@ -296,9 +328,17 @@ def main(argv=None) -> dict:
         out["config"] = args.config
         out["device_ops"] = [type(l.A).__name__
                              for l in solver.device.levels]
+    if args.dist:
+        import torch.distributed as dist
+        out.update(dist_ranks=solver.ranks.size,
+                   dist_backend=dist.get_backend(),
+                   device_ops=[type(l.A).__name__
+                               for l in solver.device.levels])
+        dist.destroy_process_group()
     out["checks"] = checks(out, args.tol)
     out["ok"] = all(out["checks"].values())
-    print(json.dumps(out), flush=True)
+    if rank0:
+        print(json.dumps(out), flush=True)
     return out
 
 

@@ -51,7 +51,19 @@ Phases (any failure raises, and the script exits non-zero):
      itself, its line held to ok, 12 iterations / 2 passes and host
      relres <= 1e-8, its own launch counts over its timed solves) and
      kernel_bench_torch.py (every level operator, transfer and the
-     V-cycle against the measured copy rate; it must exit 0).
+     V-cycle against the measured copy rate; it must exit 0);
+  8. the distributed solver (parallel/), ranks as child processes of one
+     torch.distributed group: bench_torch.py --dist 1 on NCCL (the
+     flagship at full size, held as the serial line); the dry run of
+     graft_entry_torch.py on 4 ranks sharing the card through gloo
+     (poisson3d(64), the global setup and then the process-local blocked
+     pipeline, each 12 +-1 iterations); the process-local solve of
+     parallel/multihost.py on 4 gloo ranks at poisson3d(96) (12 / 2 +-1,
+     relres <= 1e-8, the row blocks tiling the domain, no rank holding
+     the global fine matrix); NCCL with more ranks than cards refused;
+     and the DIA interior and the ELL kernels on rank blocks of that 96^3
+     hierarchy against their plain versions, timed.  The ranks' launch
+     counts over their solves join the totals.
 The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
@@ -225,16 +237,18 @@ def block_library(M, x):
 
 
 def dia_library(bands, offsets, n, x):
-    """cuSPARSE CSR SpMV of the band matrix's nonzeros."""
+    """cuSPARSE CSR SpMV of the band matrix's nonzeros whose columns lie
+    in [0, n_pad) (the kernel's x = 0 outside: a rank block's interior
+    product drops the entries that reach into the neighbours' rows)."""
     import torch
     rows, cols, vals = [], [], []
+    n_pad = bands.shape[1]
     i = torch.arange(n, device=bands.device)
     for d, off in enumerate(offsets):
-        keep = bands[d, :n] != 0
+        keep = (bands[d, :n] != 0) & (i + off >= 0) & (i + off < n_pad)
         rows.append(i[keep])
         cols.append(i[keep] + off)
         vals.append(bands[d, :n][keep].float())
-    n_pad = bands.shape[1]
     A = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
                                              torch.cat(cols)]),
                                 torch.cat(vals), (n_pad, n_pad)
@@ -778,6 +792,140 @@ def bench_phase(gpu_name):
     return out["launches"]
 
 
+# phase 8: the 4-rank runs (ranks sharing the card through gloo)
+DIST_RANKS = 4
+DIST_M = 96                 # launch_processes: poisson3d(96), blocked setup
+
+
+def dist_shard_cases(rng, results, dev):
+    """DIA interior and ELL kernels on one rank's blocks of the 96^3
+    flagship hierarchy split over DIST_RANKS ranks (an interior rank, so
+    both halos are live), against their plain versions and timed."""
+    import torch
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.parallel.dist import DistDia, DistEll
+    from sparsh_amg_tpu_torch.parallel.hierarchy import to_dist
+    from sparsh_amg_tpu_torch.parallel.multihost import _flagship_params
+    from sparsh_amg_tpu_torch.setup.hierarchy import amg_setup
+    params = _flagship_params()
+    hier = amg_setup(poisson3d(DIST_M), params)
+    dh = to_dist(hier, 1, DIST_RANKS, params, device=dev)
+    ops = [(f"{tag}{li}", getattr(l, f)) for li, l in enumerate(dh.levels)
+           for f, tag in (("A", "A"), ("P", "P"), ("R", "R"))]
+    ops = [(name, getattr(M, "op", M)) for name, M in ops]
+    shapes = [(name, type(M).__name__, getattr(M, "mode", None),
+               tuple(getattr(M, "bands", getattr(M, "cols", M)).shape)
+               if isinstance(M, (DistDia, DistEll)) else None)
+              for name, M in ops]
+    print(f"rank 1 of {DIST_RANKS}, poisson3d({DIST_M}): {shapes}",
+          flush=True)
+    dia = [(n, M) for n, M in ops if isinstance(M, DistDia)]
+    ell = [(n, M) for n, M in ops if isinstance(M, DistEll)]
+    assert dia and ell, shapes
+    for name, M in dia:
+        rows = dh.parts[int(name[1:])].count(1)
+        dia_cases(f"rank 1/{DIST_RANKS} {name} interior", M.bands, M.offsets,
+                  rng, results, time_it=True, n_rows=rows,
+                  timed=("dia_spmv",))
+    for name, M in ell:
+        ell_case(f"rank 1/{DIST_RANKS} {name} {M.mode}", M.as_local(), rng,
+                 results, time_it=True)
+    del dh, hier
+    torch.cuda.empty_cache()
+
+
+def dist_phase(gpu_name, rng, results, dev):
+    """Phase 8: the distributed solver in child processes.  Returns the
+    launch counts of every rank's solves."""
+    import graft_entry_torch
+    import torch
+    from sparsh_amg_tpu_torch import flagship
+    from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
+    from sparsh_amg_tpu_torch.parallel.solver import check_backend
+    paths = []
+    # (a) the bench line on one NCCL rank
+    t0 = time.perf_counter()
+    rc, lines = child_json("bench_torch.py", "--dist", "1")
+    out = lines[-1]
+    print(json.dumps(out), flush=True)
+    ref = flagship.REFERENCE_192
+    assert rc == 0 and out["ok"], out.get("checks")
+    assert (out["dist_ranks"], out["dist_backend"]) == (1, "nccl"), out
+    assert (out["iterations"], out["refine_passes"]) == \
+        (ref["iterations"], ref["refine_passes"]), out
+    assert out["relres_host_fp64"] <= 1e-8, out
+    assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
+    # DistDia smooths through the generic residual and SpMV (as the JAX
+    # package's distributed levels do): the fused tails stay unlaunched
+    for name in ("dia_spmv", "ell_spmv"):
+        assert out["launches"][name] > 0, \
+            f"{name} not launched during the --dist 1 bench's solves"
+    paths.append(out["launches"])
+    print(f"phase_s 8a {time.perf_counter() - t0:.1f} bench --dist 1 nccl "
+          f"iters={out['iterations']} passes={out['refine_passes']} "
+          f"relres={out['relres_host_fp64']:.4e} solve_s={out['solve_s']}",
+          flush=True)
+
+    # (b) the dry run: 4 ranks sharing the card through gloo
+    t0 = time.perf_counter()
+    ranks = graft_entry_torch.dryrun_multichip(DIST_RANKS, "cuda", "gloo")
+    for key in ("global", "blocked"):
+        runs = [r[key] for r in ranks]
+        assert all(abs(r["iterations"] - 12) <= 1 for r in runs), runs
+        assert all(r["relres_host_fp64"] <= 1e-8 for r in runs), runs
+        for r in runs:
+            assert r["launches"]["dia_spmv"] > 0, r
+            assert r["launches"]["ell_spmv"] > 0, r
+            paths.append(r["launches"])
+    print(json.dumps({"dryrun_multichip": [
+        {k: r[k] for k in ("rank", "ranks", "backend", "device", "global",
+                           "blocked")} for r in ranks]}), flush=True)
+    print(f"phase_s 8b {time.perf_counter() - t0:.1f} dryrun_multichip "
+          f"ranks={DIST_RANKS} backend=gloo "
+          f"iters={ranks[0]['global']['iterations']}/"
+          f"{ranks[0]['blocked']['iterations']}", flush=True)
+
+    # (c) the process-local solve at 96^3 on 4 gloo ranks
+    t0 = time.perf_counter()
+    res = launch_processes(DIST_RANKS, "poisson3d", DIST_M, setup="blocked",
+                           device="cuda", backend="gloo")
+    for r in res:
+        print(json.dumps(r), flush=True)
+        assert r["converged"] and r["true_relres"] <= 1e-8, r
+        assert abs(r["iterations"] - 12) <= 1 and r["passes"] == 2, r
+        assert not r["holds_global_fine"] and r["backend"] == "gloo", r
+        assert r["launches"]["dia_spmv"] > 0 and \
+            r["launches"]["ell_spmv"] > 0, r
+        paths.append(r["launches"])
+    hi = 0
+    for r in res:
+        assert r["row_range"][0] == hi, [r["row_range"] for r in res]
+        hi = r["row_range"][1]
+    assert hi == res[0]["n"] == DIST_M ** 3
+    print(f"phase_s 8c {time.perf_counter() - t0:.1f} launch_processes "
+          f"ranks={DIST_RANKS} backend=gloo poisson3d({DIST_M}) blocked "
+          f"iters={res[0]['iterations']} passes={res[0]['passes']} "
+          f"relres={res[0]['true_relres']:.4e} "
+          f"setup_s={max(r['setup_s'] for r in res):.2f} "
+          f"solve_s={max(r['solve_s'] for r in res):.4f}", flush=True)
+
+    # (d) NCCL refuses more ranks than cards
+    try:
+        check_backend("nccl", torch.cuda.device_count() + 1, dev)
+    except ValueError as e:
+        assert "gloo" in str(e), e
+        print(f"nccl with {torch.cuda.device_count() + 1} ranks: refused "
+              f"({e})", flush=True)
+    else:
+        raise AssertionError("nccl with more ranks than cards was accepted")
+
+    # (e) the kernels at rank-block shapes
+    t0 = time.perf_counter()
+    dist_shard_cases(rng, results, dev)
+    print(f"phase_s 8e {time.perf_counter() - t0:.1f}", flush=True)
+    return paths
+
+
 def main(nside=192, dev="cuda"):
     # -- 1. environment ----------------------------------------------------
     t_start = time.perf_counter()
@@ -937,8 +1085,14 @@ def main(nside=192, dev="cuda"):
     paths.append(bench_phase(gpu_name))
     print(f"phase_s 7 {time.perf_counter() - t0:.1f}", flush=True)
 
+    # -- 8. the distributed solver ---------------------------------------------
+    t0 = time.perf_counter()
+    distk = []
+    paths.extend(dist_phase(gpu_name, rng, distk, dev))
+    print(f"phase_s 8 {time.perf_counter() - t0:.1f}", flush=True)
+
     # -- result lines ------------------------------------------------------
-    every = small + flag + sysk + cfgk
+    every = small + flag + sysk + cfgk + distk
     total = {k: sum(p[k] for p in paths) for k in launches}
     # the bounds again at the copy rate measured on this card
     from sparsh_amg_tpu_torch.utils.timing import copy_bandwidth
@@ -956,7 +1110,7 @@ def main(nside=192, dev="cuda"):
     def entry(name, source, cases, timed, replaces):
         errs = [c["max_abs_err"] for c in every
                 if c["case"].split()[0] in cases]
-        timed_cases = [c for c in flag + sysk + cfgk
+        timed_cases = [c for c in flag + sysk + cfgk + distk
                        if c["case"].split()[0] in cases and "ms" in c]
         t = next(c for c in timed_cases if c["case"].startswith(timed))
         return {"name": name, "route": "cuda",

@@ -73,11 +73,15 @@ def to_fp32(A64):
 
 
 def spmv64(A64, x: torch.Tensor) -> torch.Tensor:
-    """y = A x in fp64 (plain PyTorch, as the JAX df64 SpMV is plain XLA)."""
+    """y = A x in fp64 (plain PyTorch, as the JAX df64 SpMV is plain XLA).
+    Other operators (the distributed fp64 operator) bring their own
+    ``spmv64``."""
     if isinstance(A64, DiaMatrix):
         return dia_plain(A64.bands, A64.offsets, x)
     if isinstance(A64, EllMatrix):
         return ell_plain(A64.cols, A64.vals, x)
+    if hasattr(A64, "spmv64"):
+        return A64.spmv64(x)
     raise TypeError(type(A64))
 
 

@@ -74,8 +74,11 @@ class OpBytes(NamedTuple):
 def op_bytes(op) -> OpBytes:
     """Device-memory bytes one SpMV of a device-layout operator moves:
     operator data, the source vector read once, the destination written
-    once.  Vectors are fp32 (fp64 beside an fp64 operator)."""
+    once.  Vectors are fp32 (fp64 beside an fp64 operator).  A
+    distributed operator is priced on this rank's block (``as_local``)."""
     import torch
+    if hasattr(op, "as_local"):
+        return op_bytes(op.as_local())
     from ..ops.block_ell import BlockEllMatrix
     from ..ops.formats import DenseMatrix, DiaMatrix, EllMatrix
     if isinstance(op, DiaMatrix):

@@ -3,8 +3,10 @@ versions): ``bench_torch.py`` prints one line with ``bench.py``'s keys
 (less its relay keys) and the port's own, passes its checks, and runs an
 acceptance configuration (``--config``); its checks fail a line that
 misses its reference; ``kernel_bench_torch.py`` gives a row for the fine
-operator, both fine transfers and the V-cycle; ``--dist`` and a missing
-GPU raise.  This file imports no jax: ``bench.py`` is read, not run."""
+operator, both fine transfers and the V-cycle; ``--dist N`` prints rank
+0's line of N gloo ranks; NCCL without a card per rank and a missing GPU
+raise.  This file
+imports no jax: ``bench.py`` is read, not run."""
 import ast
 import json
 import pathlib
@@ -160,13 +162,34 @@ def test_kernel_bench_rows(capsys):
 
 
 def test_dist_and_missing_gpu_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        bench_torch.main(["--dist", "2", "--device", "cpu"])
+    """--dist on NCCL needs a card per rank: on the CPU it raises, naming
+    gloo; without a GPU the default device raises."""
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        bench_torch.main(["--dist", "2", "--dist-backend", "nccl",
+                          "--device", "cpu"])
     if torch.cuda.is_available():
         return
     for main in (bench_torch.main, kernel_bench_torch.main):
         with pytest.raises(RuntimeError, match="--device cpu"):
             main(["--n", "8"])
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_bench_dist_line(capsys, ranks):
+    """--dist N on the CPU: rank 0 prints the serial line's keys plus the
+    ranks and the backend, passes the serial line's checks with its
+    counts; bytes are priced on one rank's layouts only."""
+    serial = _run(capsys, "--n", "16")
+    out = _run(capsys, "--n", "16", "--dist", str(ranks))
+    assert set(serial) | {"dist_ranks", "dist_backend", "device_ops"} \
+        == set(out)
+    assert (out["dist_ranks"], out["dist_backend"]) == (ranks, "gloo")
+    assert out["ok"] and out["checks"] == serial["checks"]
+    assert abs(out["iterations"] - serial["iterations"]) <= 1
+    assert out["refine_passes"] == serial["refine_passes"]
+    assert out["device_ops"][0] == "DistDia"
+    assert (out["bytes_per_nnz"] is None) == (ranks > 1)
+    assert out["value"] > 0 and not any(out["launches"].values())
 
 
 def test_timed_solves_start_from_the_primed_solver():

@@ -2,7 +2,8 @@
 ``--krylov`` and ``--smoother`` solves and prints the JAX CLI's JSON keys,
 a MatrixMarket matrix and right-hand side round-trip through
 ``utils/io``, a saved hierarchy reloads to the same solve, ``--profile``
-writes a trace, and ``--dist`` and a missing GPU raise."""
+writes a trace, ``--dist N`` solves on N gloo ranks, and NCCL without a
+card per rank and a missing GPU raise."""
 import json
 import os
 
@@ -93,14 +94,31 @@ def test_cli_profile_writes_a_trace(capsys, tmp_path):
 
 
 def test_cli_refuses_dist_and_a_missing_gpu():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli.run([*SMALL, "--device", "cpu", "--dist", "2"])
+    """--dist on NCCL needs a card per rank: on the CPU it raises, naming
+    gloo; without a GPU the default device raises."""
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        cli.run([*SMALL, "--device", "cpu", "--dist", "2",
+                 "--dist-backend", "nccl"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.run(SMALL)                   # --device defaults to cuda
     args = cli.build_argparser().parse_args([])
     assert args.device == "cuda"
     assert not hasattr(args, "loop_mode") and not hasattr(args, "chunk")
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_cli_dist_on_gloo_ranks(capsys, jax_keys, ranks):
+    """--dist N on the CPU (gloo, the default there): N rank processes
+    (one in-process for N = 1), rank 0's line printed with the JAX CLI's
+    keys plus the ranks and the backend, and the serial solve's counts."""
+    serial = _port(capsys)
+    got = _port(capsys, "--dist", str(ranks))
+    assert set(got) == jax_keys | {"dist_ranks", "dist_backend"}
+    assert (got["dist_ranks"], got["dist_backend"]) == (ranks, "gloo")
+    assert got["converged"] and got["relres"] <= 1e-8, got
+    assert abs(got["iterations"] - serial["iterations"]) <= 1
+    assert got["refine_passes"] == serial["refine_passes"]
 
 
 def test_timing_utilities():

@@ -341,3 +341,89 @@ def test_kernel_bench_on_the_card(cuda):
     assert {"spmv_l0", "P_l0", "R_l0", "vcycle"} <= {
         r["kernel"] for r in out["rows"]}
     assert all(0.0 < r["hbm_frac"] <= 1.0 for r in out["rows"])
+
+
+def _dist_flagship_block(rank, ranks, m, dev):
+    """Rank `rank`'s block of the flagship hierarchy of poisson3d(m) over
+    `ranks` ranks (no process group: the kernels alone)."""
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.parallel.hierarchy import to_dist
+    from sparsh_amg_tpu_torch.parallel.multihost import _flagship_params
+    from sparsh_amg_tpu_torch.setup.hierarchy import amg_setup
+    p = _flagship_params()
+    return to_dist(amg_setup(poisson3d(m), p), rank, ranks, p, device=dev)
+
+
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_dist_block_kernels_match_plain(cuda, rank):
+    """The DIA interior and the ELL kernel on rank blocks of the flagship
+    hierarchy (poisson3d(48) over 4 ranks) against their plain versions,
+    each launch counted."""
+    from sparsh_amg_tpu_torch.ops.dia_spmv import dia_plain, dia_spmv
+    from sparsh_amg_tpu_torch.ops.ell_spmv import ell_plain, ell_spmv
+    from sparsh_amg_tpu_torch.parallel.dist import DistDia, DistEll
+    dh = _dist_flagship_block(rank, 4, 48, cuda)
+    rng = np.random.default_rng(rank)
+    ops = [getattr(getattr(l, f), "op", getattr(l, f)) for l in dh.levels
+           for f in ("A", "P", "R")]
+    dia = [M for M in ops if isinstance(M, DistDia)]
+    ell = [M for M in ops if isinstance(M, DistEll)]
+    assert dia and ell
+    for M in dia:
+        x = _vec(rng, M.n_loc, cuda)
+        before = dia_spmv.launches
+        got = dia_spmv(M.bands, x, M.offsets)
+        assert dia_spmv.launches == before + 1
+        torch.cuda.synchronize()
+        assert _rel(got, dia_plain(M.bands, M.offsets, x)) <= 1e-5
+    for M in ell:
+        L = M.as_local()
+        x = _vec(rng, L.n_cols, cuda)
+        before = ell_spmv.launches
+        got = ell_spmv(L.cols, L.vals, L.lens, x, L.n_rows)
+        assert ell_spmv.launches == before + 1
+        torch.cuda.synchronize()
+        assert _rel(got, ell_plain(L.cols, L.vals, x)) <= 1e-5
+        assert not got[L.n_rows:].any()
+
+
+def test_dist_one_rank_on_the_card_matches_cpu(cuda):
+    """A one-rank DistAMGSolver on the card against the same solve on the
+    CPU: the same counts, both to 1e-8 on the host."""
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.params import KrylovParams
+    from sparsh_amg_tpu_torch.parallel import DistAMGSolver
+    from sparsh_amg_tpu_torch.parallel.multihost import _flagship_params
+    A = poisson3d(32)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    p, kr = _flagship_params().replace(dense_size=256), \
+        KrylovParams(tol=1e-8, maxiter=60)
+    on_gpu, launches = counted(
+        lambda: DistAMGSolver(A, params=p, krylov=kr, device=cuda).solve(b))
+    on_cpu = DistAMGSolver(A, params=p, krylov=kr, device="cpu").solve(b)
+    assert launches["dia_spmv"] > 0 and launches["ell_spmv"] > 0
+    assert abs(on_gpu.iterations - on_cpu.iterations) <= 1
+    assert on_gpu.refine_passes == on_cpu.refine_passes
+    for r in (on_gpu, on_cpu):
+        assert np.linalg.norm(b - A @ r.x) / np.linalg.norm(b) <= 1e-8
+
+
+@pytest.mark.parametrize("setup", ["blocked", "global"])
+def test_dist_two_ranks_share_the_card_through_gloo(cuda, setup):
+    """Two ranks on one card with the gloo backend (halos, dots and
+    gathers staged through pinned host buffers): both converge with one
+    count, launch the DIA and ELL kernels, and their rows tile the
+    domain."""
+    from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
+    res = launch_processes(2, "poisson3d", 24, setup=setup, device="cuda",
+                           backend="gloo", timeout=300)
+    assert len({(r["iterations"], r["passes"]) for r in res}) == 1
+    for r in res:
+        assert r["converged"] and r["true_relres"] <= 1e-8, r
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda"), r
+        assert r["launches"]["dia_spmv"] > 0, r
+        assert r["launches"]["ell_spmv"] > 0, r
+    if setup == "blocked":
+        assert res[0]["row_range"][1] == res[1]["row_range"][0]
+        assert res[1]["row_range"][1] == res[0]["n"]

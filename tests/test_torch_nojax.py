@@ -22,7 +22,24 @@ import numpy as np
 from sparsh_amg_tpu_torch import AMGSolver, cli, configs, flagship, systems
 from sparsh_amg_tpu_torch.models import poisson3d
 from sparsh_amg_tpu_torch.utils import io, serialize, timing
-if sys.argv[1] == "flagship":
+from sparsh_amg_tpu_torch.parallel import (DistAMGSolver, blocked_dist,
+                                           multihost)
+from sparsh_amg_tpu_torch.setup import blocked, blocked_sa, comm
+import graft_entry_torch
+if sys.argv[1] == "dist":              # one rank, global and blocked setup
+    from sparsh_amg_tpu_torch.models.poisson import poisson3d_rows
+    m, p = 24, multihost._flagship_params()
+    A, kr = poisson3d(m), flagship.krylov()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    s = DistAMGSolver.from_blocked(lambda r0, r1: poisson3d_rows(m, r0, r1),
+                                   A.shape[0], params=p, krylov=kr,
+                                   device="cpu")
+    res = s.solve(b)
+    assert res.converged and np.linalg.norm(b - A @ res.x) <= \
+        1e-8 * np.linalg.norm(b)
+    solver = DistAMGSolver(A, params=p, krylov=kr, device="cpu")
+    ns = None
+elif sys.argv[1] == "flagship":
     A, ns = poisson3d(16), None
     p, kr = flagship.params(dense_size=256), flagship.krylov()
 elif sys.argv[1] in configs.NAMES:     # gs2 triangles, BiCGStab
@@ -33,7 +50,8 @@ else:                                  # smoothed aggregation, 3 dofs/node
     A, ns = systems.problem(3, 6)
     p, kr = systems.params(3, dense_size=256), systems.krylov()
 b = np.random.default_rng(0).standard_normal(A.shape[0])
-solver = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
+if sys.argv[1] != "dist":
+    solver = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
 res = solver.solve(b)
 print(json.dumps({
     "converged": res.converged, "iterations": res.iterations,
@@ -81,6 +99,15 @@ def test_gs2_bicgstab_solve_without_jax():
     assert got["L0"] == "DiaMatrix" and got["passes"] == 2, got
 
 
+def test_distributed_solve_without_jax():
+    """The distributed solver, the blocked setup, the rank launcher and
+    the dry runs load without jax; one rank solves from the global and
+    from the process-local blocked setup."""
+    got = _solve_without_jax("dist")
+    assert got["L0"] == "DistDia" and got["passes"] == 2, got
+    assert abs(got["iterations"] - 12) <= 1, got
+
+
 def _imports(path):
     """Absolute module names a file imports (relative imports stay inside
     their own package)."""
@@ -93,13 +120,18 @@ def _imports(path):
 
 def test_no_port_module_imports_jax():
     """Neither jax nor the JAX package (any import rooted at
-    sparsh_amg_tpu), in every module of the port, in chip_smoke.py and in
-    the port's bench entry points."""
+    sparsh_amg_tpu), in every module of the port (parallel/ and the
+    blocked setup included), in chip_smoke.py, the port's bench entry
+    points, its dry runs and the rank script of the distributed tests."""
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
     files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-              ROOT / "kernel_bench_torch.py"]
-    assert len(files) >= 30
+              ROOT / "kernel_bench_torch.py", ROOT / "graft_entry_torch.py",
+              ROOT / "tests" / "torch_dist_rank.py"]
+    assert len(files) >= 40
+    assert {"dist.py", "hierarchy.py", "solver.py", "blocked_dist.py",
+            "multihost.py", "partition.py", "blocked.py", "blocked_sa.py",
+            "comm.py"} <= {f.name for f in files}
     assert not (PORT / "_host.py").exists()
     for f in files:
         bad = [m for m in _imports(f)
