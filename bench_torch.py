@@ -6,6 +6,7 @@ NVIDIA GPU: the counterpart of ``bench.py`` for the port.
     python3 bench_torch.py --config NAME [--n M] # an acceptance configuration
     python3 bench_torch.py --n 16 --device cpu   # plain versions, CPU
     python3 bench_torch.py --dist N [--dist-backend nccl|gloo]
+    python3 bench_torch.py --loop-mode host|device|auto --chunk K
 
 The flagship is ``bench.py``'s (``flagship.py``): 3-D 7-point Poisson,
 PMIS with a pmis2 aggressive first level, ext+i interpolation, bf16
@@ -21,12 +22,23 @@ right-hand side uploaded (``rhs_upload_s``); a priming solve at tol 1e-2;
 then the best of two solves, each the first solve after priming (on a
 copy of the primed solver), with the kernels' launches counted over both.
 
-Prints ONE JSON line, ``bench.py``'s keys (without its relay keys
-``loop_mode``, ``loop_mode_ab_s``, ``dispatch_rtt_ms``) plus
-``relres_host_fp64`` (recomputed with scipy from ``res.x``), the card's
-``device_name`` and ``power_limit_w`` (nvidia-smi), ``setup_peak_bytes``
-and ``solve_peak_bytes`` (each from a reset just before its phase),
-``history``, ``launches``, ``bytes_per_nnz``, ``reference`` and ``ok``.
+The Krylov loop placement is ``bench.py``'s: ``--loop-mode`` (default
+auto) and ``--chunk`` (default 12).  With auto the solver resolves a mode
+from the dispatch round trip, then the sequence above runs again in the
+other mode on the same solver (warm, prime, best of two), and the line
+reports the faster (``loop_mode``), both times (``loop_mode_ab_s``) and
+the round trip (``dispatch_rtt_ms``).
+
+Prints ONE JSON line, ``bench.py``'s keys plus ``relres_host_fp64``
+(recomputed with scipy from ``res.x``), the card's ``device_name`` and
+``power_limit_w`` (nvidia-smi), ``setup_peak_bytes`` and
+``solve_peak_bytes`` (each from a reset just before its phase; and
+``solve_peak_reserved_bytes``, which holds the CUDA graphs' pool),
+``history``, ``launches``, ``bytes_per_nnz``, ``chunk``,
+``loop_mode_counts`` (iterations and passes per mode run),
+``masked_steps`` (device mode: steps replayed past the end of a pass),
+``capture_s`` and ``instantiate_s`` (every CUDA graph's capture and
+instantiation, inside ``warm_s``), ``reference`` and ``ok``.
 ``value`` is nnz/s over every SpMV of the solve (``utils/accounting.py``);
 ``vs_baseline`` and ``vs_spec`` divide it by the copy-rate and data-sheet
 speeds of light (memory rate / ``bytes_per_nnz`` of the fp32 Krylov
@@ -35,9 +47,12 @@ CPU.
 
 ``ok`` is ``converged`` and ``relres_host_fp64 <= tol``, and, where a
 reference count exists (the flagship at 192, each configuration at its
-own size, tol 1e-8), the reference's refinement passes and its iterations
-within the slack of PERF.md §2; on the card also a measured copy rate no
-higher than the data sheet's.  A failed check prints the line with
+own size, tol 1e-8), the device-mode solve's refinement passes and its
+iterations within the slack of PERF.md §2; a host-mode solve needs the
+device mode's passes and at most its iterations plus one per pass (the
+JAX package's bound; the reference's, with its slack, when no
+device-mode solve ran); on the card also a measured copy rate no higher
+than the data sheet's.  A failed check prints the line with
 ``"ok": false`` and exits 1.
 
 ``--dist N`` (the counterpart of ``bench.py --dist``) solves with
@@ -54,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import sys
 import time
@@ -93,6 +109,13 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=[*configs.NAMES, *SYSTEMS],
                     help="an acceptance configuration instead of the "
                          "flagship")
+    ap.add_argument("--loop-mode", default="auto",
+                    choices=["auto", "host", "device"],
+                    help="Krylov loop placement; auto probes the dispatch "
+                         "round trip and runs both placements")
+    ap.add_argument("--chunk", type=int, default=12,
+                    help="Krylov iterations per chunk (one CUDA graph "
+                         "replay on the card)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -172,15 +195,27 @@ def _case(args, ap):
 
 def checks(out: dict, tol: float) -> dict:
     """Each check of the line: converged, host relres <= tol, the
-    reference's passes and iterations (where there is a reference), and a
-    measured copy rate no higher than the data sheet's (on the card)."""
+    device-mode counts against the reference (where there is one), the
+    host-mode counts against the device mode's (or the reference's), and
+    a measured copy rate no higher than the data sheet's (on the card).
+    A line without ``loop_mode_counts`` holds its own counts as the
+    device mode's."""
     got = {"converged": bool(out["converged"]),
            "relres_host_fp64": out["relres_host_fp64"] <= tol}
     ref = out["reference"]
-    if ref is not None:
-        got["refine_passes"] = out["refine_passes"] == ref["refine_passes"]
-        got["iterations"] = (abs(out["iterations"] - ref["iterations"])
+    counts = out.get("loop_mode_counts") or {
+        "device": [out["iterations"], out["refine_passes"]]}
+    dev = counts.get("device")
+    if ref is not None and dev is not None:
+        got["refine_passes"] = dev[1] == ref["refine_passes"]
+        got["iterations"] = (abs(dev[0] - ref["iterations"])
                              <= ref["iteration_slack"])
+    host = counts.get("host")
+    if host is not None and (dev is not None or ref is not None):
+        base = dev or [ref["iterations"] + ref["iteration_slack"],
+                       ref["refine_passes"]]
+        got["host_refine_passes"] = host[1] == base[1]
+        got["host_iterations"] = host[0] <= base[0] + host[1]
     if out["hbm_bw_GBs"] is not None:
         got["copy_bw_plausible"] = out["hbm_bw_GBs"] <= out["hbm_bw_spec_GBs"]
     return got
@@ -212,6 +247,8 @@ def main(argv=None) -> dict:
     from sparsh_amg_tpu_torch.utils.timing import copy_bandwidth
 
     label, build, params, krylov, ref, metric = _case(args, ap)
+    krylov = dataclasses.replace(krylov, loop_mode=args.loop_mode,
+                                 chunk=args.chunk)
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
 
     t0 = time.perf_counter()
@@ -251,19 +288,49 @@ def main(argv=None) -> dict:
     rhs = solver.prepare_rhs(b)
     sync()
     rhs_upload_s = time.perf_counter() - t0
-    solver.solve(rhs, tol=1e-2)                 # prime, as bench.py does
-    sync()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
-    # Each timed solve runs on a shallow copy of the primed solver: the
-    # solver carries one value from solve to solve (its fp32 floor
-    # estimate, AMGSolver._note_pass_slack), so without the copy the
-    # second solve could take other counts.  Both are then the first
-    # solve after priming, the solve the reference counts describe.
-    runs, launches = counted(
-        lambda: [copy.copy(solver).solve(rhs) for _ in range(2)])
+
+    def timed():
+        """Prime, then the best of two solves and the kernel launches over
+        both."""
+        solver.solve(rhs, tol=1e-2)             # prime, as bench.py does
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        # Each timed solve runs on a shallow copy of the primed solver:
+        # the solver carries values from solve to solve (its fp32 floor
+        # and contraction estimates), so without the copy the second
+        # solve could take other counts.  Both are then the first solve
+        # after priming, the solve the reference counts describe.  The
+        # copies share the solver's CUDA graphs.
+        runs, launches = counted(
+            lambda: [copy.copy(solver).solve(rhs) for _ in range(2)])
+        stats = meminfo.device_memory_stats(dev)
+        return runs, launches, (stats.get("peak_bytes_in_use"),
+                                stats.get("peak_bytes_reserved"))
+
+    runs, launches, solve_peak = timed()
     res = min(runs, key=lambda r: r.solve_time)
-    solve_peak = meminfo.device_memory_stats(dev).get("peak_bytes_in_use")
+    mode = solver.krylov.loop_mode
+    counts = {mode: [res.iterations, res.refine_passes]}
+    ab = None
+    if args.loop_mode == "auto":
+        # bench.py's in-run A/B: the other placement on the same solver,
+        # warmed and primed alike; the faster one is reported
+        ab = {mode: res.solve_time}
+        first = solver.krylov
+        alt = "device" if mode == "host" else "host"
+        solver.krylov = dataclasses.replace(first, loop_mode=alt)
+        solver.warm()
+        alt_out = timed()
+        alt_res = min(alt_out[0], key=lambda r: r.solve_time)
+        ab[alt] = alt_res.solve_time
+        counts[alt] = [alt_res.iterations, alt_res.refine_passes]
+        if alt_res.solve_time < res.solve_time:
+            runs, launches, solve_peak = alt_out
+            res, mode = alt_res, alt
+        else:
+            solver.krylov = first
+    capture_s, instantiate_s = solver.graph_seconds()
     relres_host = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
 
     nnz = int(A.nnz)
@@ -317,13 +384,21 @@ def main(argv=None) -> dict:
         "device_bytes": solver.device_bytes(),
         "device_bytes_by_level": accounting.footprint_table(
             solver.device, solver.A64, solver.A32),
-        "setup_peak_bytes": setup_peak, "solve_peak_bytes": solve_peak,
+        "setup_peak_bytes": setup_peak, "solve_peak_bytes": solve_peak[0],
+        "solve_peak_reserved_bytes": solve_peak[1],
         "bytes_in_use": stats.get("bytes_in_use"),
         "peak_bytes_in_use": stats.get("peak_bytes_in_use"),
         "bytes_limit": stats.get("bytes_limit"),
         "launches": launches,
+        "loop_mode": mode, "chunk": args.chunk, "loop_mode_counts": counts,
+        "masked_steps": res.masked_steps,
+        "capture_s": capture_s, "instantiate_s": instantiate_s,
         "reference": ref,
     }
+    if ab is not None:
+        from sparsh_amg_tpu_torch.utils.timing import measure_dispatch_rtt
+        out["loop_mode_ab_s"] = ab
+        out["dispatch_rtt_ms"] = measure_dispatch_rtt(dev) * 1e3
     if args.config is not None:
         out["config"] = args.config
         out["device_ops"] = [type(l.A).__name__

@@ -20,9 +20,16 @@ Phases (any failure raises, and the script exits non-zero):
      of one PyTorch call computing the same function
      (library_ms: a cuSPARSE CSR SpMV, which the port never calls);
   4. the flagship solve, poisson3d(192) (7,077,888 unknowns), through
-     AMGSolver, with kernel launch counts from that solve, the residual
-     recomputed on the host in fp64, and a small solve on the card held
-     against the same solve on the CPU;
+     AMGSolver in the device loop mode (every Krylov chunk a CUDA graph
+     replay), with kernel launch counts from that solve, the residual
+     recomputed on the host in fp64; then (4b) the same solve replayed
+     from the graphs against it launched eagerly with chunk 1 (counts
+     equal, relres within 1e-12 relative, whether x has the same bits
+     printed), the host loop mode at chunk 12 (the device mode's passes,
+     at most its iterations plus one per pass), and the launches counted
+     over one replay of the main chunk against the kernels the profiler
+     sees, by wrapper; and a small solve on the card held against the
+     same solve on the CPU;
   5. the systems path (smoothed aggregation, rigid-body modes, block
      levels): elasticity3d(40) and elasticity2d(512), each with every
      block (fp32 and bf16) and ELL-T operator of the hierarchy held
@@ -43,13 +50,16 @@ Phases (any failure raises, and the script exits non-zero):
      1e-2 and solved to 1e-8 with launch counts, held to the JAX
      package's CPU counts (configs.held_counts: one configuration, whose
      BiCGStab count moves with rounding in the JAX package itself, to
-     the port's plain versions' count at full size); and a stationary
-     (method "amg") solve and a gs2-BiCGStab solve at small sizes on the
-     card held against the CPU;
+     the port's plain versions' count at full size), aniso-SA(1024)
+     also in the host loop mode at chunk 12 (held as in 4b); and a
+     stationary (method "amg") solve and a gs2-BiCGStab solve at small
+     sizes on the card held against the CPU;
   7. the bench entry points as a user runs them, in child processes:
      bench_torch.py (the flagship at full size, built and warmed by
-     itself, its line held to ok, 12 iterations / 2 passes and host
-     relres <= 1e-8, its own launch counts over its timed solves) and
+     itself, with its default --loop-mode auto: both placements timed,
+     its line held to ok, the device mode's 12 iterations / 2 passes,
+     the host mode's bound and host relres <= 1e-8, its own launch
+     counts over its timed solves) and
      kernel_bench_torch.py (every level operator, transfer and the
      V-cycle against the measured copy rate; it must exit 0);
   8. the distributed solver (parallel/), ranks as child processes of one
@@ -67,11 +77,16 @@ Phases (any failure raises, and the script exits non-zero):
 The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
-after.  The line before the last is one JSON object with the kernels'
+after; a replayed graph adds the launches its capture recorded.  Graph
+capture is never skipped on the card: a capture that fails fails the
+run.  The line before the last is one JSON object with the kernels'
 errors, times and launch counts; the last line is
 {"ok": true, "device": {...}}.
 """
+import copy
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -436,6 +451,14 @@ def operator_cases(tag, levels, rng, results, timed):
             ell_case(label, M, rng, results, time_it)
 
 
+def uncaptured(solver):
+    """A shallow copy of `solver` whose chunks run eagerly: Python sees
+    every call of a solve (a replayed CUDA graph makes none)."""
+    s = copy.copy(solver)
+    s.capture = False
+    return s
+
+
 def calls_per_operator(fn, levels):
     """Calls of the DIA, ELL and block SpMVs in fn(), by operator
     ("L<i> A/P/R/L/U"), counted at the layouts' spmv methods (the fused
@@ -464,6 +487,111 @@ def calls_per_operator(fn, levels):
         for c, m in zip(classes, real):
             c.spmv = m
     return calls
+
+
+HOST_CHUNK = 12             # the host-mode phases' chunk (bench.py's)
+# phase 6's configurations solved in the host mode too (a W-cycle with
+# BiCGStab)
+HOST_CONFIGS = ("aniso2d_1024_eps1e-3_rot45_aggW_bicgstab",)
+
+
+def wrapper_of(kernel_name):
+    """The wrapper of one of the package's kernels, by the kernel's name in
+    a profiler trace (dia_tile's second template argument is the tail,
+    the index of its wrapper in dia_spmv.WRAPPERS); None for others."""
+    from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
+    m = re.search(r"::dia_tile<[^,]+, (\d+),", kernel_name)
+    if m:
+        return WRAPPERS[int(m.group(1))].__name__
+    for name in ("block_ell_spmv", "ell_spmv"):
+        if f"::{name}" in kernel_name:
+            return name
+    return None
+
+
+def host_mode_check(tag, solver, rhs, A, b):
+    """Two shallow copies of a device-mode solver solve rhs from its
+    estimates: as it is, and in the host loop mode (chunk HOST_CHUNK, its
+    graphs captured by warm()).  The host mode must converge to 1e-8 with
+    the device mode's passes and at most its iterations plus one per
+    pass."""
+    dev_res = copy.copy(solver).solve(rhs)
+    host = copy.copy(solver)
+    host.krylov = dataclasses.replace(solver.krylov, loop_mode="host",
+                                      chunk=HOST_CHUNK)
+    g0 = host.graph_seconds()
+    t0 = time.perf_counter()
+    host.warm()
+    warm_s = time.perf_counter() - t0
+    g1 = host.graph_seconds()
+    res = host.solve(rhs)
+    relres = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
+    print(json.dumps({
+        "host_mode": tag, "chunk": HOST_CHUNK, "iterations": res.iterations,
+        "refine_passes": res.refine_passes, "history": res.history,
+        "device_mode": [dev_res.iterations, dev_res.refine_passes],
+        "relres_host_fp64": relres, "solve_s": res.solve_time,
+        "device_mode_solve_s": dev_res.solve_time, "warm_s": warm_s,
+        "capture_s": g1[0] - g0[0], "instantiate_s": g1[1] - g0[1]}),
+        flush=True)
+    assert res.converged and relres <= 1e-8, (tag, res, relres)
+    assert res.refine_passes == dev_res.refine_passes, (tag, res, dev_res)
+    assert res.iterations <= dev_res.iterations + res.refine_passes, \
+        (tag, res, dev_res)
+
+
+def loop_phase(solver, rhs, A, b):
+    """Phase 4b on the flagship: the device mode replayed from CUDA graphs
+    against the same solve launched eagerly with chunk 1 (counts equal,
+    relres within 1e-12 relative; whether x has the same bits is
+    printed), the host mode at chunk HOST_CHUNK, and the launches that
+    counted() reports over one replay of the main chunk against the
+    kernels the profiler sees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sparsh_amg_tpu_torch.ops import counted
+    # both copies start from the solver's estimates: the same solve
+    cap, eager = copy.copy(solver), uncaptured(solver)
+    eager.krylov = dataclasses.replace(solver.krylov, chunk=1)
+    r_cap = cap.solve(rhs)
+    r_eager = eager.solve(rhs)
+    same_bits = bool(np.array_equal(r_cap.x, r_eager.x))
+    print(json.dumps({
+        "captured_vs_eager": "poisson3d", "captured": [
+            r_cap.iterations, r_cap.refine_passes, r_cap.relres,
+            r_cap.solve_time, r_cap.masked_steps],
+        "eager_chunk1": [r_eager.iterations, r_eager.refine_passes,
+                         r_eager.relres, r_eager.solve_time],
+        "x_same_bits": same_bits,
+        "graph_seconds": solver.graph_seconds()}), flush=True)
+    if not same_bits:
+        print("captured device mode and eager chunk 1 gave x with other "
+              "bits", flush=True)
+    assert (r_cap.iterations, r_cap.refine_passes) == \
+        (r_eager.iterations, r_eager.refine_passes), (r_cap, r_eager)
+    assert abs(r_cap.relres - r_eager.relres) <= 1e-12 * r_eager.relres, \
+        (r_cap.relres, r_eager.relres)
+    assert r_cap.converged and r_cap.masked_steps >= 0
+
+    host_mode_check("poisson3d", solver, rhs, A, b)
+
+    # launch accounting under replay: one replay of the main chunk
+    g = solver._loop().graph(True, solver.krylov.chunk)
+    assert g.graph is not None, "the flagship's main chunk was not captured"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, counts = counted(g.run)
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        w = wrapper_of(e.name)
+        if w and getattr(e.device_type, "name", "") == "CUDA":
+            seen[w] = seen.get(w, 0) + 1
+    counts = {k: v for k, v in counts.items() if v}
+    print(json.dumps({"replay_launches_counted": counts,
+                      "replay_kernels_profiled": seen,
+                      "chunk": solver.krylov.chunk}), flush=True)
+    assert counts and counts == seen, (counts, seen)
 
 
 def systems_phase(dim, rng, results, dev):
@@ -521,7 +649,8 @@ def systems_phase(dim, rng, results, dev):
     x = res.x
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
     repeats = [solver.solve(rhs).solve_time for _ in range(REPEATS)]
-    per_op = calls_per_operator(lambda: solver.solve(rhs), levels)
+    per_op = calls_per_operator(lambda: uncaptured(solver).solve(rhs),
+                                levels)
     ref = systems.REFERENCE[name]
     print(json.dumps({
         "config": name, "setup_s": solver.setup_time,
@@ -692,7 +821,8 @@ def config_phase(name, rng, results, dev):
     x = res.x
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
     repeats = [solver.solve(rhs).solve_time for _ in range(REPEATS)]
-    per_op = calls_per_operator(lambda: solver.solve(rhs), levels)
+    per_op = calls_per_operator(lambda: uncaptured(solver).solve(rhs),
+                                levels)
     ref = configs.REFERENCE[name]
     print(json.dumps({
         "config": name, "gen_s": gen_s, "setup_s": solver.setup_time,
@@ -718,6 +848,8 @@ def config_phase(name, rng, results, dev):
         assert launches[w] > 0, f"{name}: {w} not launched during the solve"
     for op in CONFIG_CALLS.get(name, ()):
         assert per_op[op] > 0, f"{name}: no SpMV on {op} during the solve"
+    if name in HOST_CONFIGS:
+        host_mode_check(CONFIG_TAGS[name], solver, rhs, A, b)
     return launches
 
 
@@ -774,8 +906,11 @@ def bench_phase(gpu_name):
     print(json.dumps(out), flush=True)
     ref = flagship.REFERENCE_192
     assert rc == 0 and out["ok"], out.get("checks")
-    assert (out["iterations"], out["refine_passes"]) == \
-        (ref["iterations"], ref["refine_passes"]), out
+    # --loop-mode auto: both placements ran; the device mode's counts are
+    # the reference's, the host mode's within its bound (out["checks"])
+    assert set(out["loop_mode_ab_s"]) == {"host", "device"}, out
+    assert out["loop_mode_counts"]["device"] == \
+        [ref["iterations"], ref["refine_passes"]], out
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
     for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
@@ -851,8 +986,8 @@ def dist_phase(gpu_name, rng, results, dev):
     ref = flagship.REFERENCE_192
     assert rc == 0 and out["ok"], out.get("checks")
     assert (out["dist_ranks"], out["dist_backend"]) == (1, "nccl"), out
-    assert (out["iterations"], out["refine_passes"]) == \
-        (ref["iterations"], ref["refine_passes"]), out
+    assert out["loop_mode_counts"]["device"] == \
+        [ref["iterations"], ref["refine_passes"]], out
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
     # DistDia smooths through the generic residual and SpMV (as the JAX
@@ -1020,7 +1155,8 @@ def main(nside=192, dev="cuda"):
     x = res.x
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
     repeats = [solver.solve(rhs).solve_time for _ in range(REPEATS)]
-    per_op = calls_per_operator(lambda: solver.solve(rhs), levels)
+    per_op = calls_per_operator(lambda: uncaptured(solver).solve(rhs),
+                                levels)
     stats = {
         "setup_s": solver.setup_time, "solve_s": res.solve_time,
         "solve_s_repeats": repeats, "spmv_calls_per_operator": per_op,
@@ -1039,6 +1175,9 @@ def main(nside=192, dev="cuda"):
     for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
                  "dia_cheb_step", "ell_spmv"):
         assert launches[name] > 0, f"{name} not launched during the solve"
+    t0 = time.perf_counter()
+    loop_phase(solver, rhs, A, b)
+    print(f"phase_s 4b {time.perf_counter() - t0:.1f}", flush=True)
 
     # a small solve on the card against the same solve on the CPU (the
     # plain versions, which the CPU tests hold to the JAX package)

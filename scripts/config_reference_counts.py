@@ -1,15 +1,18 @@
 #!/usr/bin/env python
-"""Reference counts of the seven scalar configurations (configs.py) on the
-CPU: the JAX package's solver with ``loop_mode="device"``, or with
-``--port`` the PyTorch port (its plain versions on the CPU, its CUDA
-kernels with ``--device cuda``), at full size.  Each run
-primes the solver at tol 1e-2 and then solves to the configured 1e-8, as
-``scripts/run_configs_tpu.py:167-168`` does, and prints one JSON line:
-iterations, refinement passes, the per-pass history and relres
-recomputed in fp64.
+"""Reference counts of the seven scalar configurations (configs.py) and
+the two elasticity ones (systems.py: elasticity3d, elasticity2d) on the
+CPU: the JAX package's solver, or with ``--port`` the PyTorch port (its
+plain versions on the CPU, its CUDA kernels with ``--device cuda``), at
+full size, both in the loop placement of ``--loop-mode`` (default
+device, the references' placement) and ``--chunk`` (default the
+configuration's).  Each run primes the solver at tol 1e-2 and then
+solves to the configured 1e-8, as ``scripts/run_configs_tpu.py:167-168``
+does, and prints one JSON line: iterations, refinement passes, the
+per-pass history and relres recomputed in fp64.
 
     JAX_PLATFORMS=cpu python scripts/config_reference_counts.py NAME \\
         [--port [--device cuda]] [--seed S] [--compensated-dots] [--size M]
+        [--loop-mode host|device] [--chunk K]
 
 A full-size configuration needs 1-4 GB of host memory and minutes of CPU
 (the W-cycle BiCGStab ones most); run one configuration per process.
@@ -40,14 +43,24 @@ def main():
     ap.add_argument("--compensated-dots", action="store_true")
     ap.add_argument("--size", type=int, default=None,
                     help="grid side (default: the configuration's)")
+    ap.add_argument("--loop-mode", default="device",
+                    choices=["device", "host"])
+    ap.add_argument("--chunk", type=int, default=None)
     args = ap.parse_args()
     if args.device != "cpu" and not args.port:
         ap.error("--device applies to the port (--port) only")
-    from sparsh_amg_tpu_torch import configs
-    A, ns = configs.problem(args.name, args.size)
-    p = configs.params(args.name)
-    kr = dataclasses.replace(configs.krylov(args.name),
-                             compensated_dots=args.compensated_dots)
+    from sparsh_amg_tpu_torch import configs, systems
+    dims = {"elasticity3d": 3, "elasticity2d": 2}
+    if args.name in dims:
+        dim = dims[args.name]
+        A, ns = systems.problem(dim, args.size)
+        p, kr = systems.params(dim), systems.krylov()
+    else:
+        A, ns = configs.problem(args.name, args.size)
+        p, kr = configs.params(args.name), configs.krylov(args.name)
+    kr = dataclasses.replace(kr, compensated_dots=args.compensated_dots,
+                             loop_mode=args.loop_mode,
+                             chunk=args.chunk or kr.chunk)
     b = np.random.default_rng(args.seed).standard_normal(A.shape[0])
     t0 = time.perf_counter()
     if args.port:
@@ -59,9 +72,8 @@ def main():
         from sparsh_amg_tpu import params as jparams
         from sparsh_amg_tpu.solve.solver import AMGSolver as JaxSolver
         solver = JaxSolver(A, jparams.AMGParams(**dataclasses.asdict(p)),
-                           jparams.KrylovParams(**{
-                               **dataclasses.asdict(kr),
-                               "loop_mode": "device"}), nullspace=ns)
+                           jparams.KrylovParams(**dataclasses.asdict(kr)),
+                           nullspace=ns)
     setup_s = time.perf_counter() - t0
     rhs = solver.prepare_rhs(b)
     solver.solve(rhs, tol=1e-2)
@@ -70,6 +82,7 @@ def main():
         "name": args.name,
         "solver": f"port {args.device}" if args.port else "jax cpu",
         "seed": args.seed, "compensated_dots": args.compensated_dots,
+        "loop_mode": kr.loop_mode, "chunk": kr.chunk,
         "n": A.shape[0], "nnz": int(A.nnz), "iterations": res.iterations,
         "refine_passes": res.refine_passes, "history": res.history,
         "relres": float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b)),

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_profile_solve.py [--root DIR] [--configs e3d e2d p3d]
     python3 scripts/torch_profile_solve.py --configs aniso2d_2048_eps1e-3_rot45_aggW_bicgstab
+    python3 scripts/torch_profile_solve.py --configs p3d --modes device:12 host:12 eager:1
 
 For each configuration (e3d: elasticity3d(40), e2d: elasticity2d(512), p3d:
 the flagship poisson3d(192), or the name of one of configs.py's seven) it
@@ -13,13 +14,27 @@ torch.profiler and reads the device events: the span from the first
 device event's start to the last one's end, the device busy time (the
 union of the events' intervals), the number of events and the device time
 by kernel name, and counts the kernel wrappers' launches in that solve.
-One JSON line per configuration.
+
+--modes places the Krylov loop (``KrylovParams.loop_mode`` and ``chunk``)
+for each run in turn: ``device:K`` and ``host:K`` (K iterations per
+chunk, each chunk one CUDA graph replay) and ``eager:K`` (device mode
+with the chunks launched from Python, uncaptured).  Each mode runs on a
+shallow copy of the freshly set-up solver with graphs and estimates of
+its own (the hierarchy is shared; the copy and its graphs are freed
+before the next mode, so the peaks are the mode's alone), is warmed
+(``warm()``: its graphs' capture and instantiation seconds are
+reported), primed and timed alike, with the allocator's
+peaks (in use and reserved, graph pools included) over its timed solves
+and the steps replayed past the end of a pass (``masked_steps``).
+One JSON line per configuration and mode.
 
 --root names the checkout whose ``sparsh_amg_tpu_torch`` is imported
 (default: the one holding this script), so one call can time a parent
 commit unpacked in a directory beside the tree, in turns with the tree.
 """
 import argparse
+import copy
+import gc
 import json
 import os
 import statistics
@@ -69,22 +84,59 @@ def _wrappers():
     return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv)
 
 
-def profile_one(cfg, dev):
+def profile_all(cfg, modes, dev):
+    """One record per mode of `modes` ("device:K", "host:K", "eager:K")
+    on one solver of configuration `cfg`."""
+    import dataclasses
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from sparsh_amg_tpu_torch import AMGSolver
     A, ns, p, kr, prime = _problem(cfg)
-    solver = AMGSolver(A, p, kr, nullspace=ns, device=dev)
+    fresh = AMGSolver(A, p, kr, nullspace=ns, device=dev)
     b = np.random.default_rng(0).standard_normal(A.shape[0])
-    rhs = solver.prepare_rhs(b)
-    solver.solve(rhs, tol=prime)
+    rhs = fresh.prepare_rhs(b)
+    for spec in modes:
+        solver = copy.copy(fresh)
+        solver._reset_loop_state()
+        mode, k = spec.split(":")
+        solver.capture = mode != "eager"
+        solver.krylov = dataclasses.replace(
+            kr, loop_mode="device" if mode == "eager" else mode,
+            chunk=int(k))
+        graphs0 = solver.graph_seconds()
+        t0 = time.perf_counter()
+        solver.warm()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        graphs1 = solver.graph_seconds()
+        rec = profile_one(solver, A, b, rhs, prime)
+        rec.update(config=cfg, mode=spec, warm_s=warm_s,
+                   capture_s=graphs1[0] - graphs0[0],
+                   instantiate_s=graphs1[1] - graphs0[1],
+                   setup_s=solver.setup_time)
+        del solver
+        gc.collect()
+        torch.cuda.empty_cache()
+        yield rec
+
+
+def profile_one(solver, A, b, rhs, prime):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if prime is not None:
+        solver.solve(rhs, tol=prime)
+    else:
+        solver.solve(rhs)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     runs = []
     for _ in range(SOLVES):
         res = solver.solve(rhs)
-        runs.append((res.solve_time, res.iterations, res.refine_passes))
+        runs.append((res.solve_time, res.iterations, res.refine_passes,
+                     res.masked_steps))
     relres = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
     torch.cuda.synchronize()
+    peaks = (torch.cuda.max_memory_allocated(),
+             torch.cuda.max_memory_reserved())
     wrappers = _wrappers()
     for w in wrappers:
         w.launches = 0
@@ -97,9 +149,10 @@ def profile_one(cfg, dev):
     launches = {w.__name__: w.launches for w in wrappers}
     dev_events = [e for e in prof.events()
                   if getattr(e.device_type, "name", "") == "CUDA"]
-    out = {"config": cfg, "setup_s": solver.setup_time,
-           "iterations": [r[1] for r in runs],
-           "passes": [r[2] for r in runs], "relres_host_fp64": relres,
+    out = {"iterations": [r[1] for r in runs], "history": res.history,
+           "passes": [r[2] for r in runs], "masked_steps": [r[3] for r in runs],
+           "relres_host_fp64": relres,
+           "solve_peak_bytes": peaks[0], "solve_peak_reserved_bytes": peaks[1],
            "solve_s_first": runs[0][0],
            "solve_s_median": statistics.median(r[0] for r in runs),
            "solve_s_all": [r[0] for r in runs],
@@ -131,6 +184,10 @@ def main():
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--configs", nargs="+", default=["e3d", "e2d", "p3d"],
                     help="e3d, e2d, p3d, or names from configs.NAMES")
+    ap.add_argument("--modes", nargs="+", default=["device:4"],
+                    help="loop placements to run in turn: device:K, host:K "
+                         "or eager:K (default device:4, the "
+                         "configurations' own)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -144,9 +201,10 @@ def main():
     assert sparsh_amg_tpu_torch.__file__.startswith(root), \
         sparsh_amg_tpu_torch.__file__
     for cfg in args.configs:
-        rec = profile_one(cfg, "cuda")
-        rec.update(root=root, gpu=gpu)
-        print(json.dumps(rec), flush=True)
+        for rec in profile_all(cfg, args.modes, "cuda"):
+            rec.update(root=root, gpu=gpu)
+            print(json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

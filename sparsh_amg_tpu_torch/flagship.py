@@ -22,4 +22,6 @@ def params(dense_size: int = 2048) -> AMGParams:
 
 
 def krylov(tol: float = 1e-8) -> KrylovParams:
-    return KrylovParams(method="cg", tol=tol)
+    """PCG in the device loop mode, the placement BENCH_r05.json's count
+    was taken with (exact counts)."""
+    return KrylovParams(method="cg", tol=tol, loop_mode="device")

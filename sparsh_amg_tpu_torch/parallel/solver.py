@@ -3,8 +3,9 @@
 
 One process per rank of a ``torch.distributed`` process group; each rank
 holds its row block of every distributed level on its own device.  Every
-rank runs the serial solver's host loop (``AMGSolver``: one sync per
-Krylov iteration, fp64 iterative refinement) on its block: the serial
+rank runs the serial solver's loop (``AMGSolver``: Krylov chunks in the
+host or device loop mode, one read per chunk, fp64 iterative
+refinement) on its block, its chunks uncaptured: the serial
 cycle, smoothers and Krylov steps apply unchanged, since the distributed
 operators have the serial ones' ``spmv``, the coarse level its
 ``coarse_solve``, and the dots are ``pdot`` (each rank's fp64 partial,
@@ -36,7 +37,7 @@ from ..params import AMGParams, KrylovParams
 from ..setup.hierarchy import Hierarchy, amg_setup
 from ..setup.reorder import maybe_reorder
 from ..solve.cycles import make_cycle
-from ..solve.solver import _READS, AMGSolver, DeviceRhs
+from ..solve.solver import AMGSolver, DeviceRhs, check_krylov
 from .dist import RankGroup, pdot
 from .hierarchy import DistHierarchy, fine_fp64, to_dist
 
@@ -77,6 +78,10 @@ class DistAMGSolver(AMGSolver):
     >>> res = solver.solve(b)                      # res.x: the full x
     """
 
+    # The chunks run eagerly on every backend: gloo stages every halo and
+    # dot through host buffers, which a CUDA graph cannot capture.
+    capture = False
+
     def __init__(self, A: sp.csr_matrix, group=None,
                  params: AMGParams | None = None,
                  krylov: KrylovParams | None = None,
@@ -108,9 +113,16 @@ class DistAMGSolver(AMGSolver):
                           self.torch_device)
         self.ranks = ranks
         self.params = params or AMGParams()
-        self.krylov = krylov or KrylovParams()
-        if self.krylov.method not in _READS:
-            raise ValueError(f"unknown Krylov method {self.krylov.method!r}")
+        krylov = krylov or KrylovParams()
+        self.krylov = check_krylov(krylov, self.torch_device)
+        if krylov.loop_mode == "auto" and ranks.size > 1:
+            # every rank takes one placement: host if any rank's probe
+            # says host (the ranks step and reduce in lockstep)
+            host = ranks.all_reduce(torch.tensor(
+                float(self.krylov.loop_mode == "host"),
+                device=self.torch_device))
+            self.krylov = dataclasses.replace(
+                self.krylov, loop_mode="host" if host.item() else "device")
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def _finish(self, dh: DistHierarchy, A64, local_rows: bool,
@@ -126,7 +138,7 @@ class DistAMGSolver(AMGSolver):
         self._cycle = make_cycle(self.params)
         self._dot = partial(pdot, ranks=self.ranks,
                             compensated=self.krylov.compensated_dots)
-        self._floor_est = None
+        self._reset_loop_state()
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
         self.setup_time = time.perf_counter() - t0

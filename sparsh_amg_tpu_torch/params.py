@@ -223,16 +223,16 @@ class KrylovParams:
                                        # cycle iteration, no Krylov)
     tol: float = 1e-8                  # relative residual target
     maxiter: int = 500
-    # Iteration-loop placement (SURVEY.md §3.1): "device" runs the whole
-    # Krylov loop as one lax.while_loop (single XLA computation, best for
-    # multi-host pods); "host" dispatches `chunk` iterations per jitted
-    # call and checks convergence on the host — the reference's GPU-driver
-    # pattern, robust to backends with per-while-iteration sync overhead.
-    # "auto" probes the per-dispatch RTT at solver build and picks
+    # Iteration-loop placement (SURVEY.md §3.1): the Krylov loop runs in
+    # chunks of `chunk` iterations, each one CUDA graph replay on the
+    # card, with one host read of convergence per chunk.  "host" steps
+    # every chunk to its end (up to chunk-1 iterations past a pass's
+    # end, as the JAX host mode); "device" predicates each step on the
+    # device, so the counts are exact (the JAX lax.while_loop's).
+    # "auto" probes one launch and scalar read at solver build and picks
     # "device" when it is < 1 ms (utils.timing.resolve_loop_mode).
     loop_mode: str = "host"            # host | device | auto
-    chunk: int = 4                     # iterations per dispatch (host mode;
-                                       # up to chunk-1 overrun per solve)
+    chunk: int = 4                     # iterations per chunk
     # Mixed-precision iterative refinement: the device cycle runs in fp32
     # (TPU has no fast native f64); to reach tol below fp32 roundoff the
     # outer loop recomputes residuals in double-float (df64) arithmetic and

@@ -1,16 +1,31 @@
 """Krylov iterations (the port of ``sparsh_amg_tpu/solve/krylov.py``): the
 init and step functions of preconditioned CG, BiCGStab and the stationary
-AMG iteration, with the JAX package's state tuples.  The scalars stay 0-d
-tensors on the device; the solver's host loop reads r.r (and BiCGStab's
-breakdown flag) once per iteration.
+AMG iteration, with the JAX package's state tuples, and their chunks.
+Every scalar, the iteration count k included, is a 0-d tensor on the
+device, so a chunk runs with no host sync and captures as a CUDA graph.
 
 * PCG: (x, r, z, p, r.z, r.r, k);
 * BiCGStab: (x, r, v, p, rho, alpha, omega, r.r, k, breakdown);
 * stationary: (x, r, r.r, k).
+
+A chunk (``pcg_chunk``, ``bicgstab_chunk``, ``stationary_chunk``) is k
+calls of the step with no data-dependent control flow: the host loop
+mode, which may step up to k-1 times past convergence.  With a ``guard``
+each step is predicated on the device (``masked``), the device loop
+mode: a step past convergence, the iteration budget or a BiCGStab
+breakdown changes no bit of the state and does not count, so the counts
+are those of the JAX package's ``lax.while_loop``.
 """
 from __future__ import annotations
 
 import torch
+
+# state index of ||r||^2, of the iteration count and of the breakdown flag
+READS = {"cg": (5, 6, None), "bicgstab": (7, 8, 9), "amg": (2, 3, None)}
+
+
+def _count(b: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=b.device)
 
 
 def pcg_init(matvec, precond, b, _dot, x0=None):
@@ -22,7 +37,7 @@ def pcg_init(matvec, precond, b, _dot, x0=None):
         r = b - matvec(x0)
     z = precond(r)
     p = z
-    return (x, r, z, p, _dot(r, z), _dot(r, r), 0)
+    return (x, r, z, p, _dot(r, z), _dot(r, r), _count(b))
 
 
 def pcg_step(matvec, precond, _dot, state):
@@ -49,7 +64,7 @@ def bicgstab_init(matvec, b, _dot, x0=None):
     one = torch.ones((), dtype=b.dtype, device=b.device)
     v = torch.zeros_like(b)
     p = torch.zeros_like(b)
-    return (x, r, v, p, one, one, one, _dot(r, r), 0,
+    return (x, r, v, p, one, one, one, _dot(r, r), _count(b),
             torch.zeros((), dtype=torch.bool, device=b.device))
 
 
@@ -88,7 +103,7 @@ def stationary_init(matvec, precond, b, _dot, x0=None):
     else:
         x = x0
         r = b - matvec(x0)
-    return (x, r, _dot(r, r), 0)
+    return (x, r, _dot(r, r), _count(b))
 
 
 def stationary_step(matvec, precond, _dot, state):
@@ -97,3 +112,67 @@ def stationary_step(matvec, precond, _dot, state):
     x = x + e
     r = r - matvec(e)       # one matvec per iteration (incremental residual)
     return (x, r, _dot(r, r), k + 1)
+
+
+def masked(step, method: str, guard):
+    """`step` predicated on the device: active = ||r||^2 finite and above
+    target, k below maxiter, and (BiCGStab) no breakdown yet.  An active
+    step gives the plain step's bits; an inactive one leaves every state
+    entry bit for bit unchanged and k where it was.  guard = (target,
+    maxiter): 0-d device tensors (fp64 and int32) that the host fills
+    before a pass, read on the device at every step."""
+    i_rr, i_k, i_brk = READS[method]
+    target, maxiter = guard
+
+    def step_masked(state):
+        rr = state[i_rr]
+        active = (rr.double() > target) & torch.isfinite(rr) \
+            & (state[i_k] < maxiter)
+        if i_brk is not None:
+            active = active & ~state[i_brk]
+        new = step(state)
+        return tuple(torch.where(active, n, o) for n, o in zip(new, state))
+
+    return step_masked
+
+
+def _chunk(step, chunk: int, method: str, guard):
+    if guard is not None:
+        step = masked(step, method, guard)
+
+    def chunk_fn(state):
+        for _ in range(chunk):
+            state = step(state)
+        return state
+
+    return chunk_fn
+
+
+def pcg_chunk(matvec, precond, chunk: int, _dot, guard=None):
+    """(init_fn(b) -> state, chunk_fn(state) -> state): chunk_fn advances
+    `chunk` iterations with no data-dependent control flow (each one
+    predicated when a guard is given, see ``masked``)."""
+    init_fn = lambda b, x0=None: pcg_init(matvec, precond, b, _dot, x0)
+    return init_fn, _chunk(lambda st: pcg_step(matvec, precond, _dot, st),
+                           chunk, "cg", guard)
+
+
+def bicgstab_chunk(matvec, precond, chunk: int, _dot, guard=None):
+    """BiCGStab's (init_fn(b), chunk_fn(rhat, state)), as pcg_chunk."""
+    init_fn = lambda b, x0=None: bicgstab_init(matvec, b, _dot, x0)
+
+    def chunk_fn(rhat, state):
+        return _chunk(lambda st: bicgstab_step(matvec, precond, _dot, rhat,
+                                               st),
+                      chunk, "bicgstab", guard)(state)
+
+    return init_fn, chunk_fn
+
+
+def stationary_chunk(matvec, precond, chunk: int, _dot, guard=None):
+    """The stationary iteration's (init_fn(b), chunk_fn(state)), as
+    pcg_chunk (the JAX package unrolls it inside its solver)."""
+    init_fn = lambda b, x0=None: stationary_init(matvec, precond, b, _dot, x0)
+    return init_fn, _chunk(
+        lambda st: stationary_step(matvec, precond, _dot, st), chunk, "amg",
+        guard)

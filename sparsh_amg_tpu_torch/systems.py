@@ -87,4 +87,7 @@ def params(dim: int, dense_size: int = 2048) -> AMGParams:
 
 
 def krylov(tol: float = 1e-8) -> KrylovParams:
-    return KrylovParams(method="cg", tol=tol, maxiter=300)
+    """PCG in the device loop mode, the placement REFERENCE's counts were
+    taken with."""
+    return KrylovParams(method="cg", tol=tol, maxiter=300,
+                        loop_mode="device")

@@ -72,12 +72,16 @@ def hbm_spec_bw(device) -> float:
 
 def device_memory_stats(device) -> dict:
     """bytes_in_use and peak_bytes_in_use of the CUDA allocator on
-    `device` and the card's memory (bytes_limit); {} for a CPU device."""
+    `device`, peak_bytes_reserved (the allocator's pools, CUDA graph
+    pools included: a graph's work tensors stay reserved for its replays
+    but count as in use only while it is captured) and the card's memory
+    (bytes_limit); {} for a CPU device."""
     device = torch.device(device)
     if device.type != "cuda":
         return {}
     return {"bytes_in_use": torch.cuda.memory_allocated(device),
             "peak_bytes_in_use": torch.cuda.max_memory_allocated(device),
+            "peak_bytes_reserved": torch.cuda.max_memory_reserved(device),
             "bytes_limit": torch.cuda.mem_get_info(device)[1]}
 
 

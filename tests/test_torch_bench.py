@@ -1,6 +1,7 @@
 """The port's bench entry points on the CPU (``--device cpu``, the plain
 versions): ``bench_torch.py`` prints one line with ``bench.py``'s keys
-(less its relay keys) and the port's own, passes its checks, and runs an
+(its loop-placement A/B's included) and the port's own, passes its
+checks, and runs an
 acceptance configuration (``--config``); its checks fail a line that
 misses its reference; ``kernel_bench_torch.py`` gives a row for the fine
 operator, both fine transfers and the V-cycle; ``--dist N`` prints rank
@@ -19,14 +20,17 @@ import kernel_bench_torch
 from sparsh_amg_tpu_torch import flagship
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-RELAY_KEYS = {"loop_mode", "loop_mode_ab_s", "dispatch_rtt_ms"}
+LOOP_KEYS = {"loop_mode", "loop_mode_ab_s", "dispatch_rtt_ms"}
 ADDED_KEYS = {"relres_host_fp64", "device_name", "power_limit_w",
-              "setup_peak_bytes", "solve_peak_bytes", "history", "launches",
-              "bytes_per_nnz", "reference", "checks", "ok"}
+              "setup_peak_bytes", "solve_peak_bytes",
+              "solve_peak_reserved_bytes", "history", "launches",
+              "bytes_per_nnz", "chunk", "loop_mode_counts", "masked_steps",
+              "capture_s", "instantiate_s", "reference", "checks", "ok"}
 DEVICE_KEYS = {"vs_baseline", "hbm_bw_GBs", "hbm_bw_spec_GBs",
                "speed_of_light_nnz_per_s", "vs_spec", "hbm_fraction",
                "hbm_fraction_spec", "device_name", "power_limit_w",
-               "setup_peak_bytes", "solve_peak_bytes", "bytes_in_use",
+               "setup_peak_bytes", "solve_peak_bytes",
+               "solve_peak_reserved_bytes", "bytes_in_use",
                "peak_bytes_in_use", "bytes_limit"}
 
 
@@ -66,11 +70,21 @@ def _run(capsys, *argv):
 
 
 def test_bench_flagship_line(capsys):
+    """The default --loop-mode auto runs both placements (bench.py's A/B)
+    and reports the faster, with bench.py's loop keys; the host-mode
+    solve is held to the device mode's counts."""
     out = _run(capsys, "--n", "16")
-    want = (bench_py_keys() - RELAY_KEYS) | ADDED_KEYS
+    want = bench_py_keys() | ADDED_KEYS
+    assert LOOP_KEYS <= want
     assert len(want) > 35 and want <= set(out), want - set(out)
-    assert out["ok"] and out["checks"] == {"converged": True,
-                                           "relres_host_fp64": True}
+    assert out["ok"] and out["checks"] == {
+        "converged": True, "relres_host_fp64": True,
+        "host_refine_passes": True, "host_iterations": True}
+    assert set(out["loop_mode_ab_s"]) == set(out["loop_mode_counts"]) \
+        == {"host", "device"}
+    assert out["solve_s"] == out["loop_mode_ab_s"][out["loop_mode"]]
+    assert out["chunk"] == 12 and out["dispatch_rtt_ms"] > 0
+    assert out["capture_s"] == out["instantiate_s"] == 0.0   # CPU: eager
     assert out["metric"] == "amg_pcg_poisson3d_spmv_throughput"
     assert out["unit"] == "nnz/s" and out["value"] > 0
     assert out["reference"] is None          # no count reference at 16^3
@@ -89,10 +103,12 @@ def test_bench_flagship_line(capsys):
 
 
 def test_bench_flagship_parameters_are_bench_pys():
-    """The flagship's parameters are bench.py:137-170's (its relay-only
-    loop_mode and chunk aside), and only the flagship at 192 is held to
-    BENCH_r05.json's 12 iterations / 2 passes."""
+    """The flagship's parameters are bench.py:137-170's, its loop
+    placement flags bench.py's defaults (auto, chunk 12), and only the
+    flagship at 192 is held to BENCH_r05.json's 12 iterations / 2
+    passes (a device-mode count)."""
     args = bench_torch.build_argparser().parse_args([])
+    assert (args.loop_mode, args.chunk) == ("auto", 12)
     _, _, params, krylov, ref, _ = bench_torch._case(args, None)
     want = dict(smoother="chebyshev", cycle="V", band_dtype="bfloat16",
                 coarsening="pmis", interpolation="extpi", dense_size=2048,
@@ -100,7 +116,8 @@ def test_bench_flagship_parameters_are_bench_pys():
                 rap_drop_tol=0.01, agg_levels=1, interp_max_composed=5,
                 intermediate_drop_tol=0.02, aggressive="pmis2")
     assert params == flagship.params().replace(**want)
-    assert (krylov.method, krylov.tol) == ("cg", 1e-8)
+    assert (krylov.method, krylov.tol, krylov.loop_mode) == \
+        ("cg", 1e-8, "device")
     assert (ref["iterations"], ref["refine_passes"],
             ref["iteration_slack"]) == (12, 2, 1)
     args = bench_torch.build_argparser().parse_args(["--n", "96"])
@@ -110,7 +127,8 @@ def test_bench_flagship_parameters_are_bench_pys():
 @pytest.mark.parametrize("config,n", [("poisson2d_1024_wjacobi_V_cg", "48"),
                                       ("elasticity3d", "4")])
 def test_bench_config_line(capsys, config, n):
-    out = _run(capsys, "--config", config, "--n", n, "--dense-size", "64")
+    out = _run(capsys, "--config", config, "--n", n, "--dense-size", "64",
+               "--loop-mode", "device")
     assert out["ok"] and out["config"] == config
     assert out["metric"] == f"amg_pcg_{config}_spmv_throughput"
     assert len(out["device_ops"]) == out["levels"] >= 2
@@ -135,8 +153,17 @@ def test_bench_config_reference_at_full_size():
 @pytest.mark.parametrize("change,ok", [
     ({}, True), ({"iterations": 14}, False), ({"iterations": 13}, True),
     ({"refine_passes": 3}, False), ({"relres_host_fp64": 2e-8}, False),
-    ({"converged": False}, False), ({"hbm_bw_GBs": 3400.0}, False)])
+    ({"converged": False}, False), ({"hbm_bw_GBs": 3400.0}, False),
+    ({"loop_mode_counts": {"device": [12, 2], "host": [14, 2]}}, True),
+    ({"loop_mode_counts": {"device": [12, 2], "host": [15, 2]}}, False),
+    ({"loop_mode_counts": {"device": [12, 2], "host": [12, 3]}}, False),
+    ({"loop_mode_counts": {"device": [14, 2], "host": [14, 2]}}, False),
+    ({"loop_mode_counts": {"host": [15, 2]}}, True),
+    ({"loop_mode_counts": {"host": [16, 2]}}, False)])
 def test_bench_checks_fail_a_line_off_its_reference(change, ok):
+    """The device-mode counts are held to the reference; host-mode
+    counts to the device mode's passes and iterations plus one per pass
+    (to the reference's, with its slack, when no device-mode solve ran)."""
     line = {"converged": True, "relres_host_fp64": 9e-10, "iterations": 12,
             "refine_passes": 2, "hbm_bw_GBs": 3000.0,
             "hbm_bw_spec_GBs": 3350.0,
@@ -176,11 +203,13 @@ def test_dist_and_missing_gpu_raise():
 
 @pytest.mark.parametrize("ranks", [1, 2])
 def test_bench_dist_line(capsys, ranks):
-    """--dist N on the CPU: rank 0 prints the serial line's keys plus the
-    ranks and the backend, passes the serial line's checks with its
-    counts; bytes are priced on one rank's layouts only."""
-    serial = _run(capsys, "--n", "16")
-    out = _run(capsys, "--n", "16", "--dist", str(ranks))
+    """--dist N on the CPU (host loop mode, the placement the dry runs
+    use): rank 0 prints the serial line's keys plus the ranks and the
+    backend, passes the serial line's checks with its counts; bytes are
+    priced on one rank's layouts only."""
+    serial = _run(capsys, "--n", "16", "--loop-mode", "host")
+    out = _run(capsys, "--n", "16", "--loop-mode", "host", "--dist",
+               str(ranks))
     assert set(serial) | {"dist_ranks", "dist_backend", "device_ops"} \
         == set(out)
     assert (out["dist_ranks"], out["dist_backend"]) == (ranks, "gloo")

@@ -2,8 +2,9 @@
 ``--krylov`` and ``--smoother`` solves and prints the JAX CLI's JSON keys,
 a MatrixMarket matrix and right-hand side round-trip through
 ``utils/io``, a saved hierarchy reloads to the same solve, ``--profile``
-writes a trace, ``--dist N`` solves on N gloo ranks, and NCCL without a
-card per rank and a missing GPU raise."""
+writes a trace, ``--dist N`` solves on N gloo ranks, ``--loop-mode`` and
+``--chunk`` reach ``KrylovParams``, and NCCL without a card per rank and
+a missing GPU raise."""
 import json
 import os
 
@@ -104,7 +105,28 @@ def test_cli_refuses_dist_and_a_missing_gpu():
             cli.run(SMALL)                   # --device defaults to cuda
     args = cli.build_argparser().parse_args([])
     assert args.device == "cuda"
-    assert not hasattr(args, "loop_mode") and not hasattr(args, "chunk")
+    assert (args.loop_mode, args.chunk) == ("host", 4)   # the JAX CLI's
+
+
+@pytest.mark.parametrize("flags,placed", [
+    ((), ("host", 4)), (("--loop-mode", "device"), ("device", 4)),
+    (("--loop-mode", "host", "--chunk", "12"), ("host", 12)),
+    (("--loop-mode", "auto", "--chunk", "2"), ("device", 2))])
+def test_cli_loop_mode_reaches_krylov_params(capsys, monkeypatch, jax_keys,
+                                             flags, placed):
+    """--loop-mode and --chunk (the JAX CLI's flags and defaults) go into
+    the solver's KrylovParams (auto resolved there: a CPU launch and read
+    take microseconds, so device), and the line keeps the JAX CLI's
+    keys."""
+    from sparsh_amg_tpu_torch.solve import solver as tsolver
+    seen = []
+    real = tsolver.check_krylov
+    monkeypatch.setattr(tsolver, "check_krylov",
+                        lambda kr, dev: seen.append(real(kr, dev))
+                        or seen[-1])
+    got = _port(capsys, *flags)
+    assert [(k.loop_mode, k.chunk) for k in seen] == [placed]
+    assert set(got) == jax_keys and got["converged"]
 
 
 @pytest.mark.parametrize("ranks", [1, 2])

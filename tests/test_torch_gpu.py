@@ -427,3 +427,101 @@ def test_dist_two_ranks_share_the_card_through_gloo(cuda, setup):
     if setup == "blocked":
         assert res[0]["row_range"][1] == res[1]["row_range"][0]
         assert res[1]["row_range"][1] == res[0]["n"]
+
+
+def _flagship_small(cuda, **kw):
+    """The flagship's parameters on poisson3d(24) in the device loop mode
+    (chunk 4), its rhs on the card."""
+    import dataclasses
+    from sparsh_amg_tpu_torch import AMGSolver, flagship
+    from sparsh_amg_tpu_torch.models import poisson3d
+    A = poisson3d(24)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    kr = dataclasses.replace(flagship.krylov(), **kw)
+    s = AMGSolver(A, flagship.params(dense_size=256), kr, device=cuda)
+    return A, b, s, s.prepare_rhs(b)
+
+
+def test_captured_device_mode_matches_eager(cuda):
+    """The device mode replayed from CUDA graphs against the same solve
+    launched eagerly with chunk 1, both from the same estimates: equal
+    counts and x with the same bits."""
+    import copy
+    import dataclasses
+    A, b, s, rhs = _flagship_small(cuda)
+    s.warm()
+    s.solve(rhs, tol=1e-2)
+    eager = copy.copy(s)
+    eager.capture = False
+    eager.krylov = dataclasses.replace(s.krylov, chunk=1)
+    got, want = copy.copy(s).solve(rhs), eager.solve(rhs)
+    assert all(g.graph is not None for g in s._loop().all_graphs())
+    assert (got.iterations, got.refine_passes, got.history) == \
+        (want.iterations, want.refine_passes, want.history)
+    np.testing.assert_array_equal(got.x, want.x)
+    assert np.linalg.norm(b - A @ got.x) / np.linalg.norm(b) <= 1e-8
+
+
+def test_replay_launches_match_the_profiler(cuda):
+    """counted() over one replay of the main chunk reports, by wrapper,
+    the kernels the profiler sees in that replay."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
+    _, _, s, rhs = _flagship_small(cuda)
+    s.warm()
+    g = s._loop().graph(True, s.krylov.chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, counts = counted(g.run)
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.events():
+        m = re.search(r"::dia_tile<[^,]+, (\d+),", e.name)
+        name = WRAPPERS[int(m.group(1))].__name__ if m else next(
+            (w for w in ("block_ell_spmv", "ell_spmv")
+             if f"::{w}" in e.name), None)
+        if name:
+            seen[name] = seen.get(name, 0) + 1
+    assert counts["dia_cheb_step"] > 0 and counts["ell_spmv"] > 0
+    assert {k: v for k, v in counts.items() if v} == seen
+    assert {w.__name__: n for w, n in g.per_replay.items()} == seen
+
+
+def test_copied_solver_replays_the_same_graphs(cuda):
+    """A shallow copy shares the solver's graphs and buffers: a copy's
+    solve of another rhs in between leaves the solver's next solve as it
+    was, and no new graph is captured."""
+    import copy
+    A, b, s, rhs = _flagship_small(cuda, loop_mode="host", chunk=12)
+    s.warm()
+    first = copy.copy(s).solve(rhs)
+    graphs = {k: list(lp.graphs) for k, lp in s._loops.items()}
+    other = copy.copy(s)
+    b2 = np.random.default_rng(1).standard_normal(A.shape[0])
+    r2 = other.solve(b2)
+    again = copy.copy(s).solve(rhs)
+    assert other._loops is s._loops
+    assert {k: list(lp.graphs) for k, lp in s._loops.items()} == graphs
+    assert r2.converged and np.linalg.norm(b2 - A @ r2.x) \
+        <= 1e-8 * np.linalg.norm(b2)
+    assert (again.iterations, again.history) == \
+        (first.iterations, first.history)
+    np.testing.assert_array_equal(again.x, first.x)
+
+
+def test_cli_host_mode_chunk_12_on_the_card(capsys):
+    """--loop-mode host --chunk 12 through the CLI on the card."""
+    import json
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from sparsh_amg_tpu_torch import cli
+    out = cli.run(["--problem", "poisson3d", "--n", "32768",
+                   "--coarsening", "pmis", "--interpolation", "extpi",
+                   "--smoother", "chebyshev", "--dense-size", "256",
+                   "--loop-mode", "host", "--chunk", "12", "--json"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == json.loads(json.dumps(out))
+    assert out["converged"] and out["relres"] <= 1e-8 and \
+        out["refine_passes"] >= 1

@@ -120,21 +120,22 @@ def test_stationary_steps_match_jax():
 
 
 def test_solver_stops_on_breakdown(monkeypatch):
-    """The solver's host loop ends a BiCGStab pass at the first step that
-    reports a breakdown, read in the same sync as ||r||^2."""
+    """The solver's loop ends a BiCGStab pass at the first step that
+    reports a breakdown (device loop mode: the predicated steps after it
+    count nothing), read in the same sync as ||r||^2."""
     from sparsh_amg_tpu.models.poisson import poisson2d
     from sparsh_amg_tpu_torch import AMGSolver
     from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
-    from sparsh_amg_tpu_torch.solve import solver as tsolver
-    real = tsolver.bicgstab_step
+    real = tk.bicgstab_step
 
     def broken(*args):
         st = real(*args)
         return (*st[:9], torch.ones((), dtype=torch.bool))
-    monkeypatch.setattr(tsolver, "bicgstab_step", broken)
+    monkeypatch.setattr(tk, "bicgstab_step", broken)
     s = AMGSolver(poisson2d(32), AMGParams(coarse_size=64, dense_size=256),
-                  KrylovParams(method="bicgstab", refine=False), device="cpu")
+                  KrylovParams(method="bicgstab", refine=False,
+                               loop_mode="device"), device="cpu")
     b = torch.zeros(s.n_pad)
     b[: s.n] = 1.0
-    _, iters, relres = s._inner_solve(b, 1e-8, 50)
-    assert iters == 1 and 0.0 < relres < 1.0
+    _, iters, relres, steps = s._inner_solve(b, 1e-8, 50)
+    assert iters == 1 and 0.0 < relres < 1.0 and steps >= iters

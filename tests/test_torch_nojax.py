@@ -121,7 +121,7 @@ def _imports(path):
 def test_no_port_module_imports_jax():
     """Neither jax nor the JAX package (any import rooted at
     sparsh_amg_tpu), in every module of the port (parallel/ and the
-    blocked setup included), in chip_smoke.py, the port's bench entry
+    blocked setup and the CUDA graph chunks included), in chip_smoke.py, the port's bench entry
     points, its dry runs and the rank script of the distributed tests."""
     files = sorted(f for f in PORT.rglob("*.py")
                    if "_build" not in f.relative_to(PORT).parts)
@@ -131,7 +131,7 @@ def test_no_port_module_imports_jax():
     assert len(files) >= 40
     assert {"dist.py", "hierarchy.py", "solver.py", "blocked_dist.py",
             "multihost.py", "partition.py", "blocked.py", "blocked_sa.py",
-            "comm.py"} <= {f.name for f in files}
+            "comm.py", "graphs.py", "krylov.py"} <= {f.name for f in files}
     assert not (PORT / "_host.py").exists()
     for f in files:
         bad = [m for m in _imports(f)

@@ -246,10 +246,12 @@ def test_note_pass_slack_skips_budget_limited_passes():
     """The distributed loop hands AMGSolver._note_pass_slack its
     budget_limited flag: a pass the iteration budget cut short does not
     set the fp32 floor estimate, a finished one does; and a solve whose
-    only pass is cut by maxiter leaves it unset."""
+    only pass is cut by maxiter (in the device loop mode, which stops
+    exactly there) leaves it unset."""
     A = poisson3d(10)
     s = DistAMGSolver(A, params=AMGParams(coarse_size=40),
-                      krylov=KrylovParams(tol=1e-8), device="cpu")
+                      krylov=KrylovParams(tol=1e-8, loop_mode="device"),
+                      device="cpu")
     s._note_pass_slack(1.0, 1e-3, 1e-6, budget_limited=True)
     assert s._floor_est is None
     s._note_pass_slack(1.0, 1e-3, 1e-6, budget_limited=False)

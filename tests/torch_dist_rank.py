@@ -77,31 +77,40 @@ def coarse_case():
     return poisson2d(24), AMGParams(coarse_size=200, replicate_size=0)
 
 
-SOLVE_GROUPS = {"cycles": ("poisson3d_chebyshev", "W", "F", "bicgstab"),
+SOLVE_GROUPS = {"cycles": ("poisson3d_chebyshev", "W", "F", "bicgstab",
+                           "loop_host", "loop_device"),
                 "levels": ("gs2", "bf16", "replicated")}
+
+
+DEV = {"loop_mode": "device"}
 
 
 def solve_cases(group: str | None = None) -> dict:
     """name -> (A, params keywords, Krylov keywords): the cases of the
     JAX package's tests/test_parallel.py (dense_size 256 where the fine
     level must stay sparse: DistDia levels under Chebyshev, the gs2
-    triangles, bf16 bands); those of SOLVE_GROUPS[group] with a group."""
+    triangles, bf16 bands), each in the device loop mode but for
+    loop_host (test_parallel.py:170-180 runs both); those of
+    SOLVE_GROUPS[group] with a group."""
     from sparsh_amg_tpu_torch.models import (convection2d, poisson2d,
                                              poisson3d)
     cases = {
         "poisson3d_chebyshev": (poisson3d(12), dict(
-            smoother="chebyshev", coarse_size=40, dense_size=256), {}),
-        "W": (poisson2d(24), dict(coarse_size=40, cycle="W"), {}),
-        "F": (poisson2d(24), dict(coarse_size=40, cycle="F"), {}),
+            smoother="chebyshev", coarse_size=40, dense_size=256), DEV),
+        "W": (poisson2d(24), dict(coarse_size=40, cycle="W"), DEV),
+        "F": (poisson2d(24), dict(coarse_size=40, cycle="F"), DEV),
         "bicgstab": (convection2d(24), dict(coarse_size=40),
-                     dict(method="bicgstab", maxiter=200)),
+                     dict(method="bicgstab", maxiter=200, **DEV)),
+        "loop_host": (poisson2d(24), dict(coarse_size=40),
+                      dict(loop_mode="host")),
+        "loop_device": (poisson2d(24), dict(coarse_size=40), DEV),
         "gs2": (poisson2d(24), dict(coarse_size=40, smoother="gs2",
-                                    dense_size=256), {}),
+                                    dense_size=256), DEV),
         "bf16": ((poisson3d(12) * (np.pi / 3.0)).tocsr(),
                  dict(coarse_size=40, band_dtype="bfloat16",
-                      dense_size=256), {}),
+                      dense_size=256), DEV),
         "replicated": (poisson2d(24), dict(coarse_size=40,
-                                           replicate_size=400), {}),
+                                           replicate_size=400), DEV),
     }
     return cases if group is None else {k: cases[k]
                                         for k in SOLVE_GROUPS[group]}
