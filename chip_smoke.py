@@ -12,8 +12,10 @@ Phases (any failure raises, and the script exits non-zero):
      small size, on random long-row matrices (every split-row launch
      shape; two launches must give the same bits) and at the flagship's
      shapes (the DIA operators, every tail with the same bits twice and
-     the instantiation and halo it ran, and every ELL-T operator of the
-     hierarchy, each at the launch shape the solve gives it): max errors,
+     the instantiation and halo it ran, and every ELL operator of the
+     hierarchy in the sliced layout it was packed in, its lanes per row
+     T, slots per load V, sorting window sigma and stored/real slots
+     printed, two launches with the same bits): max errors,
      median device times, the least time the card could take (bound_ms
      at the data sheet's memory rate; bound_measured_ms, in the kernels
      line, at the copy rate measured at the end of the run) and the time
@@ -32,7 +34,7 @@ Phases (any failure raises, and the script exits non-zero):
      same solve on the CPU;
   5. the systems path (smoothed aggregation, rigid-body modes, block
      levels): elasticity3d(40) and elasticity2d(512), each with every
-     block (fp32 and bf16) and ELL-T operator of the hierarchy held
+     block (fp32 and bf16) and ELL operator of the hierarchy held
      against its plain version (and elasticity2d's fine DIA operator
      under all five tails, timed with L2 flushed between launches since
      its 44 MB table fits in L2), then primed at tol 1e-2 and solved to
@@ -42,11 +44,11 @@ Phases (any failure raises, and the script exits non-zero):
      Jacobi, l1-Jacobi, Chebyshev and two-stage Gauss-Seidel; V and W
      cycles; CG and BiCGStab): every DIA table of each hierarchy (the
      gs2 triangles, with one-sided offsets, included) under all five
-     tails, every ELL-T operator (triangles included) and every dense
+     tails, every ELL operator (triangles included) and every dense
      one against its plain version, with each DIA table's instantiation
      and halo printed; timed cases for aniso2d(1024)'s 9-band fine level
      (SPMV and the l1-Jacobi sweep), its fine gs2 triangles, delaunay's
-     fine ELL-T level and convection3d's R0; then each primed at tol
+     fine ELL level and convection3d's R0; then each primed at tol
      1e-2 and solved to 1e-8 with launch counts, held to the JAX
      package's CPU counts (configs.held_counts: one configuration, whose
      BiCGStab count moves with rounding in the JAX package itself, to
@@ -223,12 +225,15 @@ def _crow(counts):
 
 
 def ell_library(M, x):
-    """cuSPARSE CSR SpMV of the ELL-T matrix's real slots (k < lens[i])."""
+    """cuSPARSE CSR SpMV of the packed ELL matrix's real slots, in their
+    rows' order (ell_unpack)."""
     import torch
-    live = (torch.arange(M.k, device=M.cols.device)[:, None]
-            < M.lens[None, :]).T                 # (n_pad, K), row-major
-    return _csr_call(_crow(M.lens), M.cols.T[live].contiguous(),
-                     M.vals.T[live].float().contiguous(),
+    from sparsh_amg_tpu_torch.ops.ell_spmv import ell_unpack
+    cols, vals, lens = ell_unpack(M)
+    live = (torch.arange(M.k, device=cols.device)[:, None]
+            < lens[None, :]).T                   # (n_pad, K), row-major
+    return _csr_call(_crow(lens), cols.T[live].contiguous(),
+                     vals.T[live].float().contiguous(),
                      (M.n_pad, x.shape[0]), x)
 
 
@@ -334,26 +339,32 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
                 flush=flush if t else None, extra=inst)
 
 
-def ell_case(tag, M, rng, results, time_it, same_bits=False):
-    """The ELL kernel against its plain version on one table."""
+def ell_case(tag, M, rng, results, time_it, same_bits=True):
+    """The ELL kernel against its plain version on one packed matrix; the
+    record names its lanes per row T, slots per load V, sorting window
+    sigma, split-row shape G x S and stored over real slots."""
     import torch
-    from sparsh_amg_tpu_torch.ops.ell_spmv import ell_plain, ell_spmv
-    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    from sparsh_amg_tpu_torch.ops.ell_spmv import (ell_plain, ell_spmv,
+                                                   split_shape)
     from sparsh_amg_tpu_torch.utils.accounting import op_bytes
     x = torch.from_numpy(
         rng.standard_normal(max(M.n_cols, 1)).astype(np.float32)).to(
         M.cols.device)
     dt = "bf16" if M.vals.dtype == torch.bfloat16 else "fp32"
-    g, s = launch_shape(M.n_rows, M.k, M.cols.device)
+    g, s = split_shape(M, M.cols.device)
+    layout = {"T": M.lanes, "V": M.vec, "sigma": M.sigma,
+              "stored_over_real": M.cols.numel() / max(M.nnz, 1)}
     work = lib = None
     if time_it:
-        work = (*op_bytes(M), 2 * int(M.lens.sum()))
+        work = (*op_bytes(M), 2 * M.nnz)
         lib = ell_library(M, x)
     return compare(f"ell_spmv {tag} {dt} K={M.k} n={M.n_rows} "
-                   f"n_pad={M.n_pad} G={g} S={s}",
-                   lambda: ell_spmv(M.cols, M.vals, M.lens, x, M.n_rows),
-                   lambda: ell_plain(M.cols, M.vals, x), results,
-                   time_it, work=work, library=lib, same_bits=same_bits)
+                   f"n_pad={M.n_pad} T={M.lanes} V={M.vec} "
+                   f"sigma={M.sigma} G={g} S={s} "
+                   f"stored/real={layout['stored_over_real']:.3f}",
+                   lambda: ell_spmv(M, x), lambda: ell_plain(M, x), results,
+                   time_it, work=work, library=lib, same_bits=same_bits,
+                   extra=layout)
 
 
 def block_case(tag, M, rng, results, time_it, same_bits=False):
@@ -415,8 +426,8 @@ def level_operators(levels, kind):
 
 
 def sparse_operators(levels):
-    """[(name, matrix)]: every ELL-T and block operator of a device
-    hierarchy ("P0", "R1", "A2", "tril1" for ELL-T, "L1" for a block
+    """[(name, matrix)]: every ELL and block operator of a device
+    hierarchy ("P0", "R1", "A2", "tril1" for ELL, "L1" for a block
     level)."""
     from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
     from sparsh_amg_tpu_torch.ops.formats import EllMatrix
@@ -426,16 +437,21 @@ def sparse_operators(levels):
 
 
 def launch_shapes(levels):
-    """The chooser's (G, S) for every ELL-T and block operator of a device
-    hierarchy, as {name: [rows, K, G, S]}."""
+    """The launch of every ELL and block operator of a device hierarchy,
+    as {name: [rows, K, G, S]} (the split rows' lanes and cluster blocks)
+    and [rows, K, G, S, T] for ELL (T lanes per row of a slice)."""
+    from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
+    from sparsh_amg_tpu_torch.ops.ell_spmv import split_shape
     from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
     return {name: [M.n_rows, M.k,
                    *launch_shape(M.n_rows, M.k, M.cols.device)]
+            if isinstance(M, BlockEllMatrix) else
+            [M.n_rows, M.k, *split_shape(M, M.cols.device), M.lanes]
             for name, M in sparse_operators(levels)}
 
 
 def operator_cases(tag, levels, rng, results, timed):
-    """Every ELL-T and block operator of a device hierarchy against its
+    """Every ELL and block operator of a device hierarchy against its
     plain version, at the launch shape the solve gives it; the operators
     named in `timed` are timed, block levels in fp32 and bf16."""
     import dataclasses
@@ -732,7 +748,7 @@ CONFIG_TAGS = {
 }
 # the timed cases of each configuration: DIA tables with the
 # tails to time (the level's l1 inverse diagonal feeds the Jacobi tail),
-# and ELL-T operators
+# and ELL operators
 CONFIG_TIMED = {
     "aniso2d_1024_eps1e-3_rot45_aggW_bicgstab": {
         "dia": {"A0": ("dia_spmv", "dia_jacobi_sweep")}},
@@ -767,7 +783,7 @@ CONFIG_CALLS = {
 
 def config_phase(name, rng, results, dev):
     """Phase 6 for one configuration of configs.py at full size: every
-    DIA, ELL-T and dense operator of the hierarchy against its plain
+    DIA, ELL and dense operator of the hierarchy against its plain
     version, the configured cases timed, then the primed solve to 1e-8.
     Returns the solve's launch counts."""
     import torch
@@ -949,8 +965,9 @@ def dist_shard_cases(rng, results, dev):
            for f, tag in (("A", "A"), ("P", "P"), ("R", "R"))]
     ops = [(name, getattr(M, "op", M)) for name, M in ops]
     shapes = [(name, type(M).__name__, getattr(M, "mode", None),
-               tuple(getattr(M, "bands", getattr(M, "cols", M)).shape)
-               if isinstance(M, (DistDia, DistEll)) else None)
+               tuple(M.bands.shape) if isinstance(M, DistDia)
+               else (M.local.k, M.n_loc) if isinstance(M, DistEll)
+               else None)
               for name, M in ops]
     print(f"rank 1 of {DIST_RANKS}, poisson3d({DIST_M}): {shapes}",
           flush=True)
@@ -1110,9 +1127,14 @@ def main(nside=192, dev="cuda"):
         E = sp.csr_matrix((np.array([2.0, 3.0, 4.0]),
                            (np.array([0, 0, 5]), np.array([1, 7, 3]))),
                           shape=(9, 11))
+        # the rule's packing, then T lanes x V slots per load of every
+        # family of the kernel, unsorted and sorted rows
         for tag, M in (("random 300x450", R), ("empty rows 9x11", E)):
-            ell_case(tag, csr_to_ell(M, dt, 2048, device=dev), rng, small,
-                     time_it=False)
+            for pack in ({}, dict(lanes=2, vec=1, sigma=1),
+                         dict(lanes=4, vec=4, sigma=64),
+                         dict(lanes=32, vec=1, sigma=4096)):
+                ell_case(tag, csr_to_ell(M, dt, 2048, device=dev, **pack),
+                         rng, small, time_it=False)
         for bs in (2, 3, 6):
             block_case("random with holes", csr_to_block_ell(
                 random_blocks(700, bs, bs), bs, dt, device=dev), rng, small,

@@ -43,9 +43,11 @@ _ENTRIES = {
     # tile.  No CUDA call
     "dia_instantiation": [_i, _i],
     "dia_halo": [_i, _i, _p],
-    # val_bf16, cols, vals, lens, k, n_rows, n_pad, lanes, cluster, x, y,
+    # val_bf16, lanes (T), vec (V), cols, vals, slice_off, slice_width,
+    # perm, lens, n_slices, n_rows, n_pad, split lanes, cluster, x, y,
     # stream
-    "ell_spmv_launch": [_i, _p, _p, _p, _i, _i, _i, _i, _i, _p, _p, _p],
+    "ell_spmv_launch": [_i, _i, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                        _i, _p, _p, _p],
     # val_bf16, bs, cols, vals, lens, kn, n, n_pad, lanes, cluster, x, y,
     # stream
     "block_ell_spmv_launch": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _i, _p,

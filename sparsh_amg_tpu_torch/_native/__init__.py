@@ -196,6 +196,16 @@ def get_lib():
             _i64, _i64, _i64, _ptr(np.int64), _ptr(np.int32),
             _ptr(np.float64), _ptr(np.int32), _ptr(np.float32),
         ]
+        lib.ell_sort_windows.restype = None
+        lib.ell_sort_windows.argtypes = [_i64, _i64, _ptr(np.int64),
+                                         _ptr(np.int64)]
+        for name, val in (("ell_pack_f32", np.float32),
+                          ("ell_pack_f64", np.float64)):
+            fn = getattr(lib, name)
+            fn.restype = None
+            fn.argtypes = [_i64, _i64, _i64, _i64, _i64, ctypes.c_void_p,
+                           _ptr(np.int64), _ptr(np.int64), _ptr(np.int32),
+                           _ptr(val), _i32, _ptr(np.int32), _ptr(val)]
         lib.rap_fused_compute.restype = _i64
         lib.rap_fused_compute.argtypes = [
             _i64, _i64,

@@ -1534,6 +1534,72 @@ void ell_fill_f32(int64_t n, int64_t n_pad, int64_t K,
   }
 }
 
+// Row order of the sliced ELL layout (ops/formats.py::pack_ell): perm of
+// [0, n) that orders each window of sigma rows by descending length, ties
+// in row order (a stable sort), windows in parallel.
+void ell_sort_windows(int64_t n, int64_t sigma, const int64_t* lens,
+                      int64_t* perm) {
+  const int64_t nw = (n + sigma - 1) / sigma;
+#pragma omp parallel for schedule(static)
+  for (int64_t w = 0; w < nw; ++w) {
+    const int64_t lo = w * sigma, hi = std::min(n, lo + sigma);
+    for (int64_t i = lo; i < hi; ++i) perm[i] = i;
+    std::stable_sort(perm + lo, perm + hi, [lens](int64_t a, int64_t b) {
+      return lens[a] > lens[b];
+    });
+  }
+}
+
+// Slot tables of the sliced ELL layout: slice s holds width[s] slots of
+// each of its 32 / lanes rows from entry off[s]; slot q of packed row
+// r = s * c + rl lies at off[s] + ((q / tv) * 32 + rl * lanes +
+// (q / vec) % lanes) * vec + q % vec, tv = lanes * vec, and comes from
+// the ELL-T tables (K, n_pad) at row perm[r] (r where perm is null);
+// col fill, val 0 past the tables.  Slices in parallel.
+extern "C++" template <typename T>
+void ell_pack(int64_t n_pad, int64_t K, int64_t n_slices,
+                     int64_t lanes, int64_t vec, const int64_t* perm,
+                     const int64_t* width, const int64_t* off,
+                     const int32_t* cols, const T* vals, int32_t fill,
+                     int32_t* pcols, T* pvals) {
+  const int64_t c = 32 / lanes, tv = lanes * vec;
+#pragma omp parallel for schedule(dynamic, 64)
+  for (int64_t s = 0; s < n_slices; ++s) {
+    for (int64_t q = 0; q < width[s]; ++q) {
+      const int64_t at = off[s] + ((q / tv) * 32 + (q / vec) % lanes) * vec
+                         + q % vec;
+      for (int64_t rl = 0; rl < c; ++rl) {
+        const int64_t r = s * c + rl, pos = at + rl * tv;
+        if (r < n_pad && q < K) {
+          const int64_t src = q * n_pad + (perm ? perm[r] : r);
+          pcols[pos] = cols[src];
+          pvals[pos] = vals[src];
+        } else {
+          pcols[pos] = fill;
+          pvals[pos] = 0;
+        }
+      }
+    }
+  }
+}
+
+void ell_pack_f32(int64_t n_pad, int64_t K, int64_t n_slices, int64_t lanes,
+                  int64_t vec, const int64_t* perm, const int64_t* width,
+                  const int64_t* off, const int32_t* cols, const float* vals,
+                  int32_t fill, int32_t* pcols, float* pvals) {
+  ell_pack(n_pad, K, n_slices, lanes, vec, perm, width, off, cols, vals,
+           fill, pcols, pvals);
+}
+
+void ell_pack_f64(int64_t n_pad, int64_t K, int64_t n_slices, int64_t lanes,
+                  int64_t vec, const int64_t* perm, const int64_t* width,
+                  const int64_t* off, const int32_t* cols, const double* vals,
+                  int32_t fill, int32_t* pcols, double* pvals) {
+  ell_pack(n_pad, K, n_slices, lanes, vec, perm, width, off, cols, vals,
+           fill, pcols, pvals);
+}
+
+
 // Parallel first-touch of fresh pages.  Measured on the deploy VM:
 // single-threaded first-touch runs at ~0.9 GB/s and a compute kernel
 // faulting its output as it writes sustains only ~0.2 GB/s effective,

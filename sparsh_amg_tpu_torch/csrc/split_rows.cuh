@@ -35,13 +35,11 @@ __device__ __forceinline__ int slot_stride() {
   return gridDim.x * blockDim.y;
 }
 
-// Sum the partials `acc` of row `row` (lanes, then cluster ranks, in
-// order) and store the sum at y[row] when row < n; zero y[n, n_pad).
-// Every thread of the grid must call it (it holds block and cluster
-// barriers).
-__device__ __forceinline__ void reduce_store(float acc, int64_t row,
-                                             int64_t n, int64_t n_pad,
-                                             float* __restrict__ y) {
+// Sum the partials `acc` of this thread's row (lanes, then cluster ranks,
+// in order).  Returns true on the one thread that holds the row's sum,
+// in *sum (lane g = 0 of cluster rank 0).  Every thread of the grid must
+// call it (it holds block and cluster barriers).
+__device__ __forceinline__ bool reduce(float acc, float* sum) {
   __shared__ float part[kMaxLanes][kRows];
   __shared__ float total[kRows];
   const int rx = threadIdx.x, g = threadIdx.y;
@@ -52,25 +50,42 @@ __device__ __forceinline__ void reduce_store(float acc, int64_t row,
     for (int h = 1; h < (int)blockDim.y; ++h) t += part[h][rx];
     total[rx] = t;
   }
-  if (gridDim.x > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every rank's totals are written
-    if (cluster.block_rank() == 0 && g == 0) {
-      float t = total[rx];
-      for (unsigned r = 1; r < gridDim.x; ++r)
-        t += cluster.map_shared_rank(&total[0], r)[rx];
-      if (row < n) y[row] = t;
-    }
-    cluster.sync();  // no block leaves while rank 0 reads its totals
-  } else if (g == 0 && row < n) {
-    y[row] = total[rx];
+  if (gridDim.x == 1) {
+    if (g == 0) *sum = total[rx];
+    return g == 0;
   }
-  if (blockIdx.x == 0) {  // padding rows
-    const int64_t step = (int64_t)gridDim.y * kRows * blockDim.y;
-    for (int64_t j = n + ((int64_t)blockIdx.y * blockDim.y + g) * kRows + rx;
-         j < n_pad; j += step)
-      y[j] = 0.f;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank's totals are written
+  const bool mine = cluster.block_rank() == 0 && g == 0;
+  if (mine) {
+    float t = total[rx];
+    for (unsigned r = 1; r < gridDim.x; ++r)
+      t += cluster.map_shared_rank(&total[0], r)[rx];
+    *sum = t;
   }
+  cluster.sync();  // no block leaves while rank 0 reads its totals
+  return mine;
+}
+
+// Zero y[n, n_pad) (the padding rows), from the blocks of cluster rank 0.
+__device__ __forceinline__ void zero_padding(int64_t n, int64_t n_pad,
+                                             float* __restrict__ y) {
+  if (blockIdx.x != 0) return;
+  const int64_t step = (int64_t)gridDim.y * kRows * blockDim.y;
+  for (int64_t j = n + ((int64_t)blockIdx.y * blockDim.y + threadIdx.y) *
+                           kRows + threadIdx.x;
+       j < n_pad; j += step)
+    y[j] = 0.f;
+}
+
+// reduce(), then the sum stored at y[row] when row < n, and y[n, n_pad)
+// zeroed.  Every thread of the grid must call it.
+__device__ __forceinline__ void reduce_store(float acc, int64_t row,
+                                             int64_t n, int64_t n_pad,
+                                             float* __restrict__ y) {
+  float sum;
+  if (reduce(acc, &sum) && row < n) y[row] = sum;
+  zero_padding(n, n_pad, y);
 }
 
 // Launch kernel(args...) on a (cluster, ceil(rows / 32)) grid of

@@ -5,9 +5,11 @@ Host CSR matrices are frozen at setup into one of three padded layouts:
 
 * DIA: ``bands (D, n_pad)`` with ``bands[d, i] = A[i, i + offsets[d]]``;
   stencil levels.  SpMV and its fused tails run in ``ops/dia_spmv.py``.
-* ELL-T: ``cols``/``vals`` of shape ``(K, n_pad)``, padding slots val 0,
-  col 0, and the row lengths ``lens (n_pad,)`` (0 on padding rows); every
-  irregular operator (P, R, coarse A).  ``ops/ell_spmv.py``.
+* ELL, stored as sliced ELL with T lanes per row (``EllMatrix``, SELL-P:
+  SELL-C-sigma with T threads per row); every irregular operator (P, R,
+  coarse A).  ``pack_ell`` builds it from host ELL-T tables
+  ``cols``/``vals`` ``(K, n_pad)`` and row lengths; ``ops/ell_spmv.py``
+  runs it.
 * Dense: small levels, a plain matrix-vector product.
 
 The host tables come from the same native fillers as the JAX package;
@@ -25,6 +27,13 @@ import torch.nn.functional as F
 from .._native import csr_arrays, get_lib
 from .dia_spmv import dia_residual, dia_spmv
 from .ell_spmv import ell_spmv
+from .split_rows import choose_lanes
+
+# pack_ell sorts an operator's rows only when its slots fill this much:
+# below it a launch is latency-bound (a few microseconds), so the slots
+# sorting saves cost no time, while its scattered stores of y do (rank
+# blocks of the flagship, scripts/torch_split_sweep.py, PERF.md)
+SORT_MIN_BYTES = 1 << 24
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,28 +59,51 @@ class DiaMatrix:
 
 @dataclasses.dataclass(frozen=True)
 class EllMatrix:
-    """Transposed-ELL storage: cols/vals (K, n_pad); pad entries val=0,col=0;
-    lens[i] the slots of row i in use (0 on padding rows)."""
-    cols: torch.Tensor        # (K, n_pad) int32
-    vals: torch.Tensor        # (K, n_pad)
-    lens: torch.Tensor        # (n_pad,) int32
+    """Sliced ELL with T lanes per row (``pack_ell`` builds it).
+
+    Rows are sorted by descending length within windows of ``sigma`` rows
+    (sigma 1: in their own order, ``perm`` empty); packed row r (original
+    row ``perm[r]``) lies in slice r // C, C = 32 / T rows per slice (the
+    rows one warp serves).  Slice s stores
+    ``slice_width[s]`` slots per row (its longest row rounded up to T * V)
+    from entry ``slice_off[s]``: at step j, lane l (lane t = l % T of row
+    l // T) holds the row's slots (j*T + t)*V ... (j*T + t)*V + V - 1 at
+    entries slice_off[s] + (j*32 + l)*V ...  Padding slots hold val 0 and a
+    valid column.  Every row of [0, n_pad) is packed, padding rows with
+    length 0."""
+    cols: torch.Tensor          # (E,) int32
+    vals: torch.Tensor          # (E,)
+    slice_off: torch.Tensor     # (n_slices,) int32
+    slice_width: torch.Tensor   # (n_slices,) int32
+    perm: torch.Tensor          # (n_pad,) int32: original row of packed
+                                # row; (0,) for rows in their own order
+    lens: torch.Tensor          # (n_pad,) int32: slots in use, packed order
     n_rows: int
     n_cols: int
+    lanes: int                  # T
+    vec: int                    # V: slots a lane loads at once
+    sigma: int                  # rows of a sorting window
+    k: int                      # the longest row
+    nnz: int                    # slots in use
 
     @property
     def n_pad(self) -> int:
-        return self.cols.shape[1]
+        return self.lens.shape[0]
 
     @property
-    def k(self) -> int:
-        return self.cols.shape[0]
+    def n_slices(self) -> int:
+        return self.slice_off.shape[0]
+
+    def astype(self, dtype: torch.dtype) -> "EllMatrix":
+        """The same layout with its values cast (on their device)."""
+        return dataclasses.replace(self, vals=self.vals.to(dtype))
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = sum_k vals[k] * x[cols[k]].  x must have length >= n_cols."""
+        """y = A x over the real slots.  x must have length >= n_cols."""
         if x.shape[0] < self.n_cols:
             raise ValueError(f"x has {x.shape[0]} entries, the matrix "
                              f"{self.n_cols} columns")
-        return ell_spmv(self.cols, self.vals, self.lens, x, self.n_rows)
+        return ell_spmv(self, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,12 +228,106 @@ def ell_tables(A: sp.csr_matrix, pad_multiple: int, vals_dtype=np.float32):
 
 
 def csr_to_ell(A: sp.csr_matrix, dtype=torch.float32, pad_multiple: int = 128,
-               *, device) -> EllMatrix:
+               *, device, **pack) -> EllMatrix:
+    """``pack_ell`` of the CSR matrix's ELL-T tables (`pack`: its
+    ``lanes``, ``vec``, ``sigma``)."""
     cols, vals, lens = ell_tables(A, pad_multiple)
-    return EllMatrix(cols=_upload(cols, device, torch.int32),
-                     vals=_upload(vals, device, dtype),
-                     lens=_upload(lens, device, torch.int32),
-                     n_rows=A.shape[0], n_cols=A.shape[1])
+    return pack_ell(cols, vals, lens, A.shape[0], A.shape[1], dtype,
+                    device=device, **pack)
+
+
+def _slices(plen: np.ndarray, n_pad: int, c: int, tv: int) -> tuple:
+    """(widths, offsets) of the slices of c packed rows of lengths
+    `plen`, each as wide as its longest row rounded up to tv slots."""
+    n_slices = -(-n_pad // c)
+    full = np.zeros(n_slices * c, dtype=np.int64)
+    full[:n_pad] = plen
+    width = -(-full.reshape(n_slices, c).max(axis=1) // tv) * tv
+    off = np.zeros(n_slices, dtype=np.int64)
+    np.cumsum(width[:-1] * c, out=off[1:])
+    return width, off
+
+
+def pack_ell(cols: np.ndarray, vals: np.ndarray, lens: np.ndarray,
+             n_rows: int, n_cols: int, dtype=torch.float32, *, device,
+             lanes: int | None = None, vec: int | None = None,
+             sigma: int | None = None, fill: int = 0) -> EllMatrix:
+    """The one packing of an ELL operator: host ELL-T tables ``cols``,
+    ``vals`` (K, n_pad), whose slots past each row's length hold val 0
+    (and col `fill`), and the row lengths ``lens`` (n_pad,), to the sliced
+    layout on `device`.  T, V and sigma come from
+    ``split_rows.choose_lanes`` unless given; a chosen sigma falls to 1
+    (rows in their own order, no ``perm`` stored) when sorting would not
+    save more slot bytes than ``perm`` costs, or the sorted slots would
+    fill less than SORT_MIN_BYTES.  Slots the tables lack hold
+    val 0, col `fill`.  bf16 values are rounded through fp32, as every
+    host table is."""
+    K, n_pad = cols.shape
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    if lens[n_rows:].any():
+        raise ValueError("padding rows must have length 0")
+    k = int(lens.max()) if n_pad else 0
+    nnz = int(lens.sum())
+    chosen = sigma is None
+    if None in (lanes, vec, sigma):
+        t, v, w = choose_lanes(n_rows, max(k, 1), nnz / max(n_rows, 1))
+        lanes, vec, sigma = lanes or t, vec or v, sigma or w
+    tv, c = lanes * vec, 32 // lanes
+    lib = get_lib()
+    perm = np.arange(n_pad)
+    width, off = _slices(lens, n_pad, c, tv)
+    if sigma > 1:
+        # descending length within each window of sigma rows (stable)
+        if lib is not None:
+            order = np.empty(n_pad, dtype=np.int64)
+            lib.ell_sort_windows(n_pad, sigma, lens, order)
+        else:
+            order = np.argsort(perm // sigma * (k + 1) + (k - lens),
+                               kind="stable")
+        w_sorted, o_sorted = _slices(lens[order], n_pad, c, tv)
+        slot_bytes = 4 + torch.empty((), dtype=dtype).element_size()
+        if not chosen or (
+                slot_bytes * c * int((width - w_sorted).sum()) > 4 * n_pad
+                and slot_bytes * c * int(w_sorted.sum()) >= SORT_MIN_BYTES):
+            perm, width, off = order, w_sorted, o_sorted
+        else:
+            sigma = 1
+    total = int((width * c).sum())
+    if total >= 1 << 31:
+        raise ValueError(f"{total} slots exceed the int32 range")
+    if vals.dtype == np.float64 and dtype != torch.float64:
+        vals = vals.astype(np.float32)
+    n_slices = width.shape[0]
+    if lib is not None and vals.dtype in (np.float32, np.float64):
+        pcols = np.empty(total, dtype=np.int32)
+        pvals = np.empty(total, dtype=vals.dtype)
+        pack = lib.ell_pack_f32 if vals.dtype == np.float32 \
+            else lib.ell_pack_f64
+        pack(n_pad, K, n_slices, lanes, vec,
+             perm.ctypes.data if sigma > 1 else None, width, off,
+             np.ascontiguousarray(cols, dtype=np.int32),
+             np.ascontiguousarray(vals), fill, pcols, pvals)
+    else:
+        # the tables in packed row order, padded to whole slices and to a
+        # multiple of T * V slots, as (slice, step, row, lane, slot of
+        # load); each slice keeps its first width / (T * V) steps
+        kk = -(-max(K, 1) // tv) * tv
+        shape = (kk // tv, lanes, vec, n_slices, c)
+        keep = np.arange(kk // tv)[None, :] < (width // tv)[:, None]
+
+        def packed(table, pad):
+            t = np.full((kk, n_slices * c), pad, dtype=table.dtype)
+            t[:K, :n_pad] = table[:, perm] if sigma > 1 else table
+            return t.reshape(shape).transpose(3, 0, 4, 1, 2)[keep] \
+                .reshape(-1)
+
+        pcols, pvals = packed(cols, fill), packed(vals, 0)
+    i32 = lambda a: _upload(a.astype(np.int32), device, torch.int32)
+    return EllMatrix(cols=i32(pcols), vals=_upload(pvals, device, dtype),
+                     slice_off=i32(off), slice_width=i32(width),
+                     perm=i32(perm if sigma > 1 else perm[:0]),
+                     lens=i32(lens[perm]), n_rows=n_rows, n_cols=n_cols,
+                     lanes=lanes, vec=vec, sigma=sigma, k=k, nnz=nnz)
 
 
 def csr_to_dense(A: sp.csr_matrix, dtype=torch.float32,

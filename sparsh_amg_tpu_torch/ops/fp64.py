@@ -3,7 +3,7 @@
 
 The JAX package reaches a 1e-8 residual on fp32 hardware by storing the
 fine operator as a df64 pair (hi, lo) and emulating double precision.  The
-card has native fp64, so the operator is one DIA (or ELL-T) matrix with
+card has native fp64, so the operator is one DIA (or sliced ELL) matrix with
 fp64 entries equal to the JAX pair's hi + lo, and ``residual64`` is plain
 PyTorch in fp64, as the JAX package's df64 residual is plain XLA.
 """
@@ -19,7 +19,7 @@ from .._native import csr_arrays, get_lib
 from .dia_spmv import dia_plain
 from .ell_spmv import ell_plain
 from .formats import (DiaMatrix, EllMatrix, _round_up, _upload, dia_offsets,
-                      ell_tables)
+                      ell_tables, pack_ell)
 
 
 def _hi_lo(data: np.ndarray) -> np.ndarray:
@@ -59,17 +59,14 @@ def csr_to_fp64(A: sp.csr_matrix, prefer_dia: bool = True,
     split = A.copy()
     split.data = _hi_lo(A.data)
     cols, vals, lens = ell_tables(split, pad_multiple, vals_dtype=np.float64)
-    return EllMatrix(cols=_upload(cols, device, torch.int32),
-                     vals=_upload(vals, device, torch.float64),
-                     lens=_upload(lens, device, torch.int32),
-                     n_rows=n, n_cols=m)
+    return pack_ell(cols, vals, lens, n, m, torch.float64, device=device)
 
 
 def to_fp32(A64):
     """The fp32 Krylov operator, cast from the fp64 one on the device."""
     if isinstance(A64, DiaMatrix):
         return dataclasses.replace(A64, bands=A64.bands.float())
-    return dataclasses.replace(A64, vals=A64.vals.float())
+    return A64.astype(torch.float32)
 
 
 def spmv64(A64, x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +76,7 @@ def spmv64(A64, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A64, DiaMatrix):
         return dia_plain(A64.bands, A64.offsets, x)
     if isinstance(A64, EllMatrix):
-        return ell_plain(A64.cols, A64.vals, x)
+        return ell_plain(A64, x)
     if hasattr(A64, "spmv64"):
         return A64.spmv64(x)
     raise TypeError(type(A64))

@@ -1,11 +1,16 @@
 """Launch shape of the split-row kernels (``csrc/split_rows.cuh``), shared by
-``ell_spmv`` and ``block_ell_spmv``.
+``ell_spmv`` and ``block_ell_spmv``, and the lanes per row of the sliced
+ELL layout.
 
 A row of K slots is split over P = G * S threads: G lanes of a block and
 S blocks of a thread-block cluster.  ``choose`` is the plain rule;
 ``launch_shape`` applies it with the limits of the card a tensor lies on:
 its resident threads (SMs x threads per SM, from the device properties)
 and the kernels' lane and cluster limits (from the kernel library).
+
+``choose_lanes`` picks, when an ELL operator is packed, the T lanes that
+share each row of a slice, the V slots a lane loads at once and the
+window of rows sorted by length.
 """
 from __future__ import annotations
 
@@ -14,6 +19,11 @@ import functools
 import torch
 
 MIN_SLOTS = 8     # slots a thread keeps at least
+# an H100 SXM: 132 SMs of 2,048 resident threads, and the split-row
+# kernels' 32 lanes and 8 cluster blocks at most (csrc/split_rows.cuh)
+H100_LIMITS = (132 * 2048, 32, 8)
+LANE_SLOTS = 16   # mean slots of a row per lane (at least) before T doubles
+SHORT_ROW = 8     # rows of fewer mean slots sort in wide windows
 
 
 def choose(n_rows: int, k: int, resident_threads: int, max_lanes: int,
@@ -31,6 +41,32 @@ def choose(n_rows: int, k: int, resident_threads: int, max_lanes: int,
         p *= 2
     g = min(p, max_lanes)
     return g, p // g
+
+
+def choose_lanes(n_rows: int, k: int, mean_len: float,
+                 limits: tuple = H100_LIMITS) -> tuple:
+    """(T, V, sigma) of the sliced ELL layout for rows of mean length
+    `mean_len` and longest row k: T lanes per row, V slots per load,
+    rows sorted by length within windows of sigma rows.
+
+    Rows that ``choose`` splits over lanes and clusters on an H100
+    (`limits`) take (1, 1, 1): the split-row kernel reads slices of 32
+    rows and stops each row at its own length, so sorting would save no
+    reads; rows in their own order keep its gathers and stores local and
+    need no perm.  Otherwise T doubles, up to 32, while each lane keeps 2 *
+    LANE_SLOTS slots of a mean row; V = 4 (16-byte column loads) when each
+    lane keeps LANE_SLOTS, else 1; sigma = 256 / T (the rows of eight
+    slices), or 4096 for rows of under SHORT_ROW slots, whose gathers are
+    few and whose stored padding the wider window cuts by a few percent
+    (scripts/torch_split_sweep.py --sweep on an H100, PERF.md)."""
+    if choose(n_rows, k, *limits) != (1, 1):
+        return 1, 1, 1
+    t = 1
+    while t < 32 and mean_len >= 2 * LANE_SLOTS * t:
+        t *= 2
+    v = 4 if mean_len >= LANE_SLOTS * t else 1
+    sigma = 4096 if t == 1 and mean_len < SHORT_ROW else 256 // t
+    return t, v, sigma
 
 
 @functools.lru_cache(maxsize=None)

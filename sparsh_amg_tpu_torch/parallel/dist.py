@@ -25,10 +25,11 @@ Operators:
   (``ops/dia_spmv.dia_spmv``: x = 0 outside [0, n_loc), TPU kernel 1's
   boundary rule), then ``|off|`` rows per band corrected from the received
   halos (plain torch).
-* ``DistEll``: the ELL kernel (``ops/ell_spmv.ell_spmv``) on one
-  preallocated extended source [left halo | x_loc | right halo] (halo
-  mode) or on the all-gathered source (gather mode, coarse levels whose
-  columns reach past the neighbours).
+* ``DistEll``: the ELL kernel (``ops/ell_spmv.ell_spmv``) on the rank's
+  rows, packed as one serial layout, over one preallocated extended
+  source [left halo | x_loc | right halo] (halo mode) or the
+  all-gathered source (gather mode, coarse levels whose columns reach
+  past the neighbours).
 * ``DistDense``: a small level's row block times the gathered source.
 * ``GatherOut`` / ``ReplSrc``: the crossing into the replicated coarse
   levels (one all-gather, and none).
@@ -48,7 +49,8 @@ import torch.distributed as dist
 
 from ..ops.dia_spmv import dia_spmv
 from ..ops.ell_spmv import ell_plain, ell_spmv
-from ..ops.formats import DenseMatrix, DiaMatrix, EllMatrix, dia_offsets
+from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, dia_offsets,
+                           pack_ell)
 from .partition import Partition, _round_up
 
 # all_gather_into_tensor was renamed all_gather_single in later torch
@@ -231,38 +233,34 @@ class DistDia:
 
 @dataclasses.dataclass(frozen=True)
 class DistEll:
-    """Row-block transposed-ELL operator.
+    """Row-block ELL operator: this rank's rows as one packed serial
+    layout (``local``, ``ops/formats.py::pack_ell``).
 
-    mode "halo": cols index the extended source [left | x_loc | right]
-    (length n_src + 2h); mode "gather": cols index the all-gathered
-    source (length size * n_src).  Padding slots hold val 0 and col h;
-    lens holds each local row's slots in use (0 on padding rows)."""
-    cols: torch.Tensor        # (K, n_loc) int32
-    vals: torch.Tensor        # (K, n_loc)
-    lens: torch.Tensor        # (n_loc,) int32
+    mode "halo": its columns index the extended source [left | x_loc |
+    right] (length n_src + 2h); mode "gather": the all-gathered source
+    (length size * n_src).  Padding slots hold val 0 and col h."""
+    local: EllMatrix          # n_loc rows, `rows` of them real
     h: int
     mode: str                 # "halo" | "gather"
     ranks: RankGroup
     n_rows: int               # logical global rows
     n_cols: int
-    rows: int                 # this rank's real rows
     n_src: int                # the source's local length (its n_loc)
     ext: torch.Tensor | None = None   # the halo-mode extended source
 
     @property
     def n_loc(self) -> int:
-        return self.cols.shape[-1]
+        return self.local.n_pad
 
     @property
-    def k(self) -> int:
-        return self.cols.shape[0]
+    def rows(self) -> int:
+        """This rank's real rows."""
+        return self.local.n_rows
 
     def as_local(self) -> EllMatrix:
         """The local block as the serial layout the kernel runs on (its
         columns index the extended or gathered source)."""
-        n_src = self.n_src + 2 * self.h if self.mode == "halo" \
-            else self.ranks.size * self.n_src
-        return EllMatrix(self.cols, self.vals, self.lens, self.rows, n_src)
+        return self.local
 
     def source(self, x: torch.Tensor, into: torch.Tensor | None = None):
         """The vector the columns index: extended or gathered."""
@@ -271,11 +269,10 @@ class DistEll:
         return self.ranks.all_gather(x)
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        src = self.source(x, self.ext)
-        return ell_spmv(self.cols, self.vals, self.lens, src, self.rows)
+        return ell_spmv(self.local, self.source(x, self.ext))
 
     def spmv_plain(self, x: torch.Tensor) -> torch.Tensor:
-        return ell_plain(self.cols, self.vals, self.source(x), self.lens)
+        return ell_plain(self.local, self.source(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,7 +325,7 @@ class ReplSrc:
         op = self.op
         if isinstance(op, DistDense):
             return torch.mv(op.mat.to(x_full.dtype), x_full)
-        return ell_spmv(op.cols, op.vals, op.lens, x_full, op.rows)
+        return ell_spmv(op.local, x_full)
 
 
 # ---------------------------------------------------------------------------
@@ -449,8 +446,8 @@ def _dist_ell(cols, vals, lens, h, mode, ranks, n, m, rows, n_src, dtype,
     ext = None
     if mode == "halo" and dtype != torch.float64:
         ext = torch.zeros(n_src + 2 * h, dtype=torch.float32, device=device)
-    return DistEll(cols=_upload(cols, device, torch.int32),
-                   vals=_upload(vals, device, dtype),
-                   lens=_upload(lens, device, torch.int32), h=int(h),
-                   mode=mode, ranks=ranks, n_rows=n, n_cols=m, rows=rows,
-                   n_src=n_src, ext=ext)
+    n_ext = n_src + 2 * h if mode == "halo" else ranks.size * n_src
+    local = pack_ell(cols, vals, lens, rows, n_ext, dtype, device=device,
+                     fill=h)
+    return DistEll(local=local, h=int(h), mode=mode, ranks=ranks, n_rows=n,
+                   n_cols=m, n_src=n_src, ext=ext)

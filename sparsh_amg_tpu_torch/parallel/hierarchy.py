@@ -279,8 +279,9 @@ def fp64_operator(A_fp64, dtype=torch.float32) -> DistFp64:
         assert isinstance(A_fp64, DistEll)
         ext = None if A_fp64.mode != "halo" else torch.zeros(
             A_fp64.n_src + 2 * A_fp64.h, dtype=torch.float32,
-            device=A_fp64.vals.device)
-        hi = dataclasses.replace(A_fp64, vals=A_fp64.vals.to(dtype), ext=ext)
+            device=A_fp64.local.vals.device)
+        hi = dataclasses.replace(A_fp64, local=A_fp64.local.astype(dtype),
+                                 ext=ext)
     return DistFp64(A=A_fp64, A_hi=hi)
 
 

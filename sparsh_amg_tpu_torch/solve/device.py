@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from .._native import csr_arrays, get_lib
 from ..ops.block_ell import BlockEllMatrix, csr_to_block_ell
 from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, _round_up,
-                           csr_to_dense, csr_to_device, csr_to_ell)
+                           csr_to_dense, csr_to_device, csr_to_ell, pack_ell)
 from ..params import AMGParams
 from ..setup.hierarchy import Hierarchy
 
@@ -364,9 +364,10 @@ def _layout_from_jax(M, device):
         return DiaMatrix(_tensor(M.bands, device), tuple(M.offsets),
                          M.n_rows, M.n_cols)
     if kind == "EllMatrix":
-        return EllMatrix(_tensor(M.cols, device), _tensor(M.vals, device),
-                         _tensor(_ell_lengths(M.vals), device), M.n_rows,
-                         M.n_cols)
+        vals = np.asarray(M.vals)
+        return pack_ell(np.asarray(M.cols), vals.astype(np.float32),
+                        _ell_lengths(vals), M.n_rows, M.n_cols,
+                        _val_dtype(vals), device=device)
     if kind == "DenseMatrix":
         return DenseMatrix(_tensor(M.mat, device), M.n_rows, M.n_cols,
                            M.out_pad)

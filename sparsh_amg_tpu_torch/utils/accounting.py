@@ -88,12 +88,14 @@ def op_bytes(op) -> OpBytes:
         return OpBytes(nz * b.element_size() + 2 * vec * op.n_rows,
                        b.nbytes + 2 * vec * op.n_pad)
     if isinstance(op, EllMatrix):
+        # padded: every stored table of the sliced layout
         vec = max(4, op.vals.element_size())
-        slots = int(op.lens.sum())
+        stored = sum(t.nbytes for t in (op.cols, op.vals, op.slice_off,
+                                        op.slice_width, op.perm, op.lens))
         return OpBytes(
-            slots * (op.vals.element_size() + op.cols.element_size())
+            op.nnz * (op.vals.element_size() + op.cols.element_size())
             + vec * (op.n_cols + op.n_rows),
-            op.vals.nbytes + op.cols.nbytes + vec * (op.n_cols + op.n_pad))
+            stored + vec * (op.n_cols + op.n_pad))
     if isinstance(op, BlockEllMatrix):
         node_slots = int(op.lens.sum())
         return OpBytes(

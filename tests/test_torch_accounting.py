@@ -102,9 +102,12 @@ def _layouts():
         "dia fp32": (dia, (28 * 4 + 2 * 4 * 10, 3 * 128 * 4 + 2 * 4 * 128)),
         "dia bf16": (dia16, (28 * 2 + 2 * 4 * 10,
                              3 * 128 * 2 + 2 * 4 * 128)),
-        # 3 slots of value + column, x over 4 columns, y over 3 rows
+        # 3 slots of value + column, x over 4 columns, y over 3 rows;
+        # stored: one slice of 32 rows, 2 slots wide (64 slots of value +
+        # column), its offset and width, lens over 8 rows (no perm: in
+        # one slice, sorting saves no slot)
         "ell": (ell, (3 * 8 + 4 * (4 + 3),
-                      2 * 8 * 4 + 2 * 8 * 4 + 4 * (4 + 8))),
+                      64 * 8 + 2 * 4 + 8 * 4 + 4 * (4 + 8))),
         # 3 node slots of a column and 4 values
         "block": (blk, (3 * (4 + 4 * 4) + 4 * (4 + 4),
                         K * 2 * n_pad * 4 + K * nb * 4 + 4 * (4 + n_pad))),
@@ -132,6 +135,38 @@ def _solver(case):
     if case == "poisson3d(12) fp32 bands":   # level 0 is the fp32 operator
         p = p.replace(band_dtype="float32")
     return AMGSolver(poisson3d(12), p, flagship.krylov(), device="cpu")
+
+
+# ELL operators of each kind the hierarchies hold: P, R and a coarse A of
+# a classical hierarchy, an SA transfer, an irregular random matrix
+def _ell_matrices():
+    hier = amg_setup(poisson3d(12), tparams.AMGParams(
+        coarsening="pmis", interpolation="extpi", interp_max=4))
+    sa = amg_setup(poisson3d(12), tparams.AMGParams(coarsening="aggregation"))
+    return {"P0": hier.levels[0].P.tocsr(), "R0": hier.levels[0].R.tocsr(),
+            "A1": hier.levels[1].A.tocsr(), "SA R0": sa.levels[0].R.tocsr(),
+            "random": sp.random(700, 500, density=0.03, random_state=2,
+                                format="csr")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_real_bytes_are_the_real_slots(dtype):
+    """Real bytes of an ELL operator are its nonzeros' values and columns
+    plus x and y once, whatever the packing (the same work, so every
+    bound_ms stays); padded bytes are every stored table of the layout."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for name, A in _ell_matrices().items():
+        n, m = A.shape
+        for lanes, vec, sigma in ((None, None, 256), (1, 1, 32), (4, 1, 256),
+                                  (32, 4, 4096)):
+            E = csr_to_ell(A, dtype, 128, device="cpu", lanes=lanes,
+                           vec=vec, sigma=sigma)
+            ob = acc.op_bytes(E)
+            assert ob.real == A.nnz * (4 + esize) + 4 * (m + n), name
+            stored = (E.cols.numel() * (4 + esize)
+                      + 4 * (2 * E.n_slices + E.perm.numel() + E.n_pad))
+            assert ob.padded == stored + 4 * (m + E.n_pad), name
+            assert ob.real <= ob.padded, name
 
 
 @pytest.mark.parametrize("case", ["poisson3d(12) bf16 bands",

@@ -13,6 +13,7 @@ from sparsh_amg_tpu.models.poisson import poisson2d, poisson3d
 from sparsh_amg_tpu.ops import df64
 from sparsh_amg_tpu.ops.df64_ops import csr_to_df64, residual_df64
 from sparsh_amg_tpu_torch.ops import blas
+from sparsh_amg_tpu_torch.ops.ell_spmv import ell_unpack
 from sparsh_amg_tpu_torch.ops.formats import DiaMatrix, EllMatrix
 from sparsh_amg_tpu_torch.ops.fp64 import csr_to_fp64, residual64, to_fp32
 
@@ -72,14 +73,17 @@ def test_fp64_entries_are_df64_hi_plus_lo(mat):
         hi, got = np.asarray(Adf.A_hi.bands, np.float64), A64.bands.numpy()
     else:
         assert isinstance(A64, EllMatrix)
-        np.testing.assert_array_equal(A64.cols.numpy(),
+        k = np.asarray(Adf.A_hi.cols).shape[0]
+        cols, got, _ = ell_unpack(A64, k=k)
+        np.testing.assert_array_equal(cols.numpy(),
                                       np.asarray(Adf.A_hi.cols))
-        hi, got = np.asarray(Adf.A_hi.vals, np.float64), A64.vals.numpy()
+        hi, got = np.asarray(Adf.A_hi.vals, np.float64), got.numpy()
     lo = 0.0 if Adf.lo is None else np.asarray(Adf.lo, np.float64)
     np.testing.assert_array_equal(got, hi + lo)
     # the fp32 Krylov operator is the JAX A_hi, cast on the device
     A32 = to_fp32(A64)
-    got32 = A32.bands if isinstance(A32, DiaMatrix) else A32.vals
+    got32 = A32.bands if isinstance(A32, DiaMatrix) \
+        else ell_unpack(A32, k=k)[1]
     np.testing.assert_array_equal(got32.numpy(), hi.astype(np.float32))
 
 

@@ -184,19 +184,73 @@ def test_dia_instantiations_and_alignment(cuda):
         K.dia_spmv(bands, v, (0,))
 
 
+def _rows_of_lengths(n, lo, hi, mean, seed):
+    """An n x n matrix whose rows hold lo + Poisson(mean - lo) entries, cut
+    at hi, one row hi long, at distinct columns around the diagonal, as a
+    level's rows are."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    lens = np.clip(lo + rng.poisson(mean - lo, n), lo, hi)
+    lens[n // 2] = hi
+    rows = np.repeat(np.arange(n), lens)
+    first = np.repeat(np.cumsum(lens) - lens, lens)
+    cols = rows - lens[rows] // 2 + np.arange(rows.size) - first
+    A = sp.csr_matrix((rng.standard_normal(rows.size),
+                       (rows, np.clip(cols, 0, n - 1))), shape=(n, n))
+    A.sum_duplicates()
+    return A
+
+
+# (rows, shortest, longest, mean row): a random matrix, then delaunay's
+# fine level (K 21, mean 7) and the flagship's R0 (K 113, mean 67) in shape
+ELL_SHAPES = {"random": None, "delaunay-like": (300_000, 4, 21, 7),
+              "R0-like": (150_000, 25, 113, 67)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ell_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+@pytest.mark.parametrize("packing", [None, (1, 1, 1), (4, 4, 256),
+                                     (32, 1, 4096)],
+                         ids=["rule", "T1V1unsorted", "T4V4", "T32V1"])
+def test_ell_kernel_matches_plain(cuda, dtype, shape, packing):
+    """The sliced kernel against its plain version (the packing the rule
+    picks, and others), each launch counted, two launches with the same
+    bits, 0 on padding rows."""
     import scipy.sparse as sp
     from sparsh_amg_tpu_torch.ops.ell_spmv import ell_plain, ell_spmv
     from sparsh_amg_tpu_torch.ops.formats import csr_to_ell
-    A = sp.random(3000, 4500, density=0.01, random_state=4, format="csr")
-    E = csr_to_ell(A, dtype, 2048, device=cuda)
+    A = sp.random(3000, 4500, density=0.01, random_state=4, format="csr") \
+        if ELL_SHAPES[shape] is None else _rows_of_lengths(
+            *ELL_SHAPES[shape], seed=3)
+    pack = {} if packing is None else dict(zip(("lanes", "vec", "sigma"),
+                                               packing))
+    E = csr_to_ell(A, dtype, 2048, device=cuda, **pack)
     x = _vec(np.random.default_rng(1), A.shape[1], cuda)
     before = ell_spmv.launches
-    got = ell_spmv(E.cols, E.vals, E.lens, x, E.n_rows)
-    torch.cuda.synchronize()
-    assert _rel(got, ell_plain(E.cols, E.vals, x)) <= 1e-5
+    got = ell_spmv(E, x)
     assert ell_spmv.launches == before + 1
+    again = ell_spmv(E, x)
+    torch.cuda.synchronize()
+    assert _rel(got, ell_plain(E, x)) <= 1e-5
+    assert torch.equal(got, again)
+    assert not got[E.n_rows:].any()
+
+
+@pytest.mark.parametrize("shape", ["delaunay-like", "R0-like"])
+def test_plain_fp64_product_is_deterministic(cuda, shape):
+    """The fp64 refinement residual's plain product on a packed operator
+    gives the same bits twice on the card, within fp64 rounding of the
+    host's."""
+    from sparsh_amg_tpu_torch.ops.fp64 import csr_to_fp64, spmv64
+    A = _rows_of_lengths(*ELL_SHAPES[shape], seed=4)
+    A64 = csr_to_fp64(A, prefer_dia=False, device=cuda)
+    x = np.random.default_rng(5).standard_normal(A.shape[1])
+    xd = torch.from_numpy(x).to(cuda)
+    got, again = spmv64(A64, xd), spmv64(A64, xd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = torch.from_numpy(A @ x)
+    assert _rel(got[: A.shape[0]].cpu(), want) <= 1e-13
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -233,6 +287,17 @@ def test_wrappers_raise_on_mixed_devices(cuda):
         block_ell_spmv(cols.cpu(), vals, lens, torch.ones(2048, device=cuda))
     with pytest.raises(ValueError):
         block_ell_spmv(cols, vals, lens.cpu(), torch.ones(2048, device=cuda))
+    import dataclasses
+    import scipy.sparse as sp
+    from sparsh_amg_tpu_torch.ops.ell_spmv import ell_spmv
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_ell
+    E = csr_to_ell(sp.random(300, 400, density=0.05, random_state=1,
+                             format="csr"), device=cuda)
+    with pytest.raises(ValueError):
+        ell_spmv(E, torch.ones(400))
+    with pytest.raises(ValueError):
+        ell_spmv(dataclasses.replace(E, perm=E.perm.cpu()),
+                 torch.ones(400, device=cuda))
 
 
 # (rows, columns, longest row): fewer than 32 rows, rows not a multiple of
@@ -258,12 +323,15 @@ def test_ell_kernel_long_rows(cuda, shape, dtype):
     from sparsh_amg_tpu_torch.systems import random_long_rows
     A = random_long_rows(*shape, seed=5)
     E = csr_to_ell(A, dtype, 2048, device=cuda)
-    assert E.k == shape[2] and launch_shape(E.n_rows, E.k, cuda) != (1, 1)
+    assert E.k == shape[2] and (E.lanes, E.vec) == (1, 1)
+    assert launch_shape(E.n_rows, E.k, cuda) != (1, 1)
     x = _vec(np.random.default_rng(2), A.shape[1], cuda)
-    got = ell_spmv(E.cols, E.vals, E.lens, x, E.n_rows)
-    again = ell_spmv(E.cols, E.vals, E.lens, x, E.n_rows)
+    before = ell_spmv.launches
+    got = ell_spmv(E, x)
+    assert ell_spmv.launches == before + 1
+    again = ell_spmv(E, x)
     torch.cuda.synchronize()
-    assert _rel(got, ell_plain(E.cols, E.vals, x)) <= 1e-5
+    assert _rel(got, ell_plain(E, x)) <= 1e-5
     assert torch.equal(got, again)
     assert not got[E.n_rows:].any()
 
@@ -380,10 +448,10 @@ def test_dist_block_kernels_match_plain(cuda, rank):
         L = M.as_local()
         x = _vec(rng, L.n_cols, cuda)
         before = ell_spmv.launches
-        got = ell_spmv(L.cols, L.vals, L.lens, x, L.n_rows)
+        got = ell_spmv(L, x)
         assert ell_spmv.launches == before + 1
         torch.cuda.synchronize()
-        assert _rel(got, ell_plain(L.cols, L.vals, x)) <= 1e-5
+        assert _rel(got, ell_plain(L, x)) <= 1e-5
         assert not got[L.n_rows:].any()
 
 

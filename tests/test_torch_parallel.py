@@ -30,6 +30,7 @@ from sparsh_amg_tpu.parallel.hierarchy import to_dist as jto_dist
 from sparsh_amg_tpu.parallel.solver import default_mesh
 from sparsh_amg_tpu.setup.hierarchy import amg_setup as jamg_setup
 from sparsh_amg_tpu_torch.models import poisson3d
+from sparsh_amg_tpu_torch.ops.ell_spmv import ell_unpack
 from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
 from sparsh_amg_tpu_torch.parallel import multihost
 from sparsh_amg_tpu_torch.parallel.hierarchy import fine_fp64, to_dist
@@ -179,10 +180,14 @@ def _same_op(mine, ref, r, label, stacked=True):
             assert mine.h == ref.h, label
         np.testing.assert_array_equal(_np(mine.bands), pick(ref.bands), label)
     elif kind in ("DistEll", "EllMatrix"):
+        fill = 0
         if kind == "DistEll":
             assert (mine.h, mine.mode) == (ref.h, ref.mode), label
-        np.testing.assert_array_equal(_np(mine.cols), pick(ref.cols), label)
-        np.testing.assert_array_equal(_np(mine.vals), pick(ref.vals), label)
+            mine, fill = mine.local, mine.h
+        k = np.asarray(ref.cols).shape[-2]
+        cols, vals, _ = ell_unpack(mine, k=k, fill=fill)
+        np.testing.assert_array_equal(_np(cols), pick(ref.cols), label)
+        np.testing.assert_array_equal(_np(vals), pick(ref.vals), label)
     else:
         assert kind in ("DistDense", "DenseMatrix"), label
         np.testing.assert_array_equal(_np(mine.mat), pick(ref.mat), label)

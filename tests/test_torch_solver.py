@@ -24,6 +24,7 @@ from sparsh_amg_tpu.solve import cycles as jcycles
 from sparsh_amg_tpu.solve import device as jdevice
 from sparsh_amg_tpu.solve.solver import AMGSolver as JaxSolver
 from sparsh_amg_tpu_torch import AMGSolver, configs, flagship, to_device
+from sparsh_amg_tpu_torch.ops.ell_spmv import ell_unpack
 from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
 from sparsh_amg_tpu_torch.solve import cycles, device
 from sparsh_amg_tpu_torch.utils.meminfo import tree_device_bytes
@@ -67,6 +68,17 @@ def _table(M):
     if kind == "EllMatrix":
         return kind, None, [np.asarray(M.cols), np.asarray(M.vals, np.float32)]
     return kind, None, [np.asarray(M.mat, np.float32), M.out_pad]
+
+
+def _port_table(M, ref):
+    """_table of a port layout, a packed ELL one through ell_unpack (to
+    the JAX table's K slots)."""
+    if type(M).__name__ == "EllMatrix":
+        cols, vals, _ = ell_unpack(M, k=np.asarray(ref.cols).shape[0])
+        return "EllMatrix", None, [cols.numpy(), vals.float().numpy()]
+    return _table(dataclasses.replace(M, **{
+        k: _np(v) for k, v in vars(M).items()
+        if isinstance(v, torch.Tensor)}))
 
 
 def _np(t):
@@ -125,9 +137,7 @@ def test_to_device_matches_jax(case):
             if mj is None:
                 continue
             kj, oj, aj = _table(mj)
-            kt, ot, at = _table(dataclasses.replace(mt, **{
-                k: _np(v) for k, v in vars(mt).items()
-                if isinstance(v, torch.Tensor)}))
+            kt, ot, at = _port_table(mt, mj)
             assert (kj, oj) == (kt, ot), f
             for a, b in zip(aj, at):
                 np.testing.assert_array_equal(a, b)
