@@ -36,9 +36,14 @@ Prints ONE JSON line, ``bench.py``'s keys plus ``relres_host_fp64``
 ``solve_peak_reserved_bytes``, which holds the CUDA graphs' pool),
 ``history``, ``launches``, ``bytes_per_nnz``, ``chunk``,
 ``loop_mode_counts`` (iterations and passes per mode run),
-``masked_steps`` (device mode: steps replayed past the end of a pass),
+``masked_steps`` (steps run past the end of a pass that did not count:
+0 in both loop modes, kept as a check), ``host_reads`` (the solve's reads
+of the device by the host: one per pass in the device mode, one per chunk
+and one per pass in the host mode; ``loop_mode_host_reads`` per mode run),
 ``capture_s`` and ``instantiate_s`` (every CUDA graph's capture and
-instantiation, inside ``warm_s``), ``reference`` and ``ok``.
+instantiation) and ``pass_graph_s`` (the device mode's pass graphs'
+assembly, instantiation and upload), inside ``warm_s``, ``reference`` and
+``ok``.
 ``value`` is nnz/s over every SpMV of the solve (``utils/accounting.py``);
 ``vs_baseline`` and ``vs_spec`` divide it by the copy-rate and data-sheet
 speeds of light (memory rate / ``bytes_per_nnz`` of the fp32 Krylov
@@ -114,8 +119,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="Krylov loop placement; auto probes the dispatch "
                          "round trip and runs both placements")
     ap.add_argument("--chunk", type=int, default=12,
-                    help="Krylov iterations per chunk (one CUDA graph "
-                         "replay on the card)")
+                    help="Krylov iterations per chunk of the host loop "
+                         "mode (one CUDA graph replay on the card)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -312,6 +317,7 @@ def main(argv=None) -> dict:
     res = min(runs, key=lambda r: r.solve_time)
     mode = solver.krylov.loop_mode
     counts = {mode: [res.iterations, res.refine_passes]}
+    reads = {mode: res.host_reads}
     ab = None
     if args.loop_mode == "auto":
         # bench.py's in-run A/B: the other placement on the same solver,
@@ -325,6 +331,7 @@ def main(argv=None) -> dict:
         alt_res = min(alt_out[0], key=lambda r: r.solve_time)
         ab[alt] = alt_res.solve_time
         counts[alt] = [alt_res.iterations, alt_res.refine_passes]
+        reads[alt] = alt_res.host_reads
         if alt_res.solve_time < res.solve_time:
             runs, launches, solve_peak = alt_out
             res, mode = alt_res, alt
@@ -391,8 +398,10 @@ def main(argv=None) -> dict:
         "bytes_limit": stats.get("bytes_limit"),
         "launches": launches,
         "loop_mode": mode, "chunk": args.chunk, "loop_mode_counts": counts,
-        "masked_steps": res.masked_steps,
+        "masked_steps": res.masked_steps, "host_reads": res.host_reads,
+        "loop_mode_host_reads": reads,
         "capture_s": capture_s, "instantiate_s": instantiate_s,
+        "pass_graph_s": solver.pass_graph_seconds(),
         "reference": ref,
     }
     if ab is not None:

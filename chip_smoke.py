@@ -20,18 +20,25 @@ Phases (any failure raises, and the script exits non-zero):
      at the data sheet's memory rate; bound_measured_ms, in the kernels
      line, at the copy rate measured at the end of the run) and the time
      of one PyTorch call computing the same function
-     (library_ms: a cuSPARSE CSR SpMV, which the port never calls);
+     (library_ms: a cuSPARSE CSR SpMV, which the port never calls); and
+     the loop guard of the device loop mode (csrc/graph_loop.cu) against
+     its plain version on every case of the loop condition;
   4. the flagship solve, poisson3d(192) (7,077,888 unknowns), through
-     AMGSolver in the device loop mode (every Krylov chunk a CUDA graph
-     replay), with kernel launch counts from that solve, the residual
-     recomputed on the host in fp64; then (4b) the same solve replayed
-     from the graphs against it launched eagerly with chunk 1 (counts
+     AMGSolver in the device loop mode (each refinement pass one launch
+     of a CUDA graph with a WHILE node, one host read per pass, no masked
+     step), with kernel launch counts from that solve, the residual
+     recomputed on the host in fp64; then (4b) the same solve from the
+     pass graphs against its passes launched eagerly (the loop in
+     Python, the guard kernel before every step, as chunk 1 reads: counts
      equal, relres within 1e-12 relative, whether x has the same bits
      printed), the host loop mode at chunk 12 (the device mode's passes,
-     at most its iterations plus one per pass), and the launches counted
-     over one replay of the main chunk against the kernels the profiler
-     sees, by wrapper; and a small solve on the card held against the
-     same solve on the CPU;
+     at most its iterations plus one per pass), the launches counted over
+     one pass graph launch against the start's, k steps' and finish's
+     captured launches and k + 1 guards, and over one replay of the step
+     graph and of the host mode's main chunk against the kernels the
+     profiler sees, by wrapper, with the node kinds of the captured step;
+     and a small solve on the card held against the same solve on the
+     CPU;
   5. the systems path (smoothed aggregation, rigid-body modes, block
      levels): elasticity3d(40) and elasticity2d(512), each with every
      block (fp32 and bf16) and ELL operator of the hierarchy held
@@ -66,7 +73,8 @@ Phases (any failure raises, and the script exits non-zero):
      V-cycle against the measured copy rate; it must exit 0);
   8. the distributed solver (parallel/), ranks as child processes of one
      torch.distributed group: bench_torch.py --dist 1 on NCCL (the
-     flagship at full size, held as the serial line); the dry run of
+     flagship at full size, held as the serial line, its loop captured:
+     the device mode's pass graphs built); the dry run of
      graft_entry_torch.py on 4 ranks sharing the card through gloo
      (poisson3d(64), the global setup and then the process-local blocked
      pipeline, each 12 +-1 iterations); the process-local solve of
@@ -79,9 +87,11 @@ Phases (any failure raises, and the script exits non-zero):
 The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
-after; a replayed graph adds the launches its capture recorded.  Graph
-capture is never skipped on the card: a capture that fails fails the
-run.  The line before the last is one JSON object with the kernels'
+after; a replayed graph adds the launches its capture recorded, a pass
+graph its step's once per iteration it ran.  Every solve in the device
+loop mode (phases 4-6 and the bench lines) runs its passes from WHILE
+graphs: graph capture is never skipped on the card, and a capture or a
+pass graph that fails to build fails the run.  The line before the last is one JSON object with the kernels'
 errors, times and launch counts; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -467,8 +477,63 @@ def operator_cases(tag, levels, rng, results, timed):
             ell_case(label, M, rng, results, time_it)
 
 
+# the loop guard's cases: each method's state, with its condition's every
+# way to stop (a breakdown only BiCGStab reports)
+GUARD_CASES = ("active", "met", "zero_rhs", "budget", "inf", "nan",
+               "breakdown")
+# bytes the guard must move: ||r||^2 (fp32), k (int32), breakdown (bool),
+# target and budget (fp64) read; (||r||^2, k, breakdown) written in fp64
+GUARD_BYTES = 4 + 4 + 1 + 8 + 8 + 3 * 8
+
+
+def guard_cases(results, dev):
+    """The loop guard kernel launched on its own against its plain version
+    (krylov.loop_active and loop_record) on every case of the loop
+    condition, for each Krylov method's state at the solver's types: the
+    same decision and record, the same bits twice.  One case timed."""
+    import torch
+    from sparsh_amg_tpu_torch.solve import krylov as tk
+    from sparsh_amg_tpu_torch.solve.graphs import loop_guard
+    f64 = torch.float64
+    for method, size in (("cg", 7), ("bicgstab", 10), ("amg", 4)):
+        i_rr, i_k, i_brk = tk.READS[method]
+        for case in GUARD_CASES:
+            if case == "breakdown" and i_brk is None:
+                continue
+            state = [torch.zeros((), device=dev) for _ in range(size)]
+            state[i_rr] = torch.tensor(
+                {"inf": float("inf"), "nan": float("nan"),
+                 "zero_rhs": 0.0}.get(case, 2.5), device=dev)
+            state[i_k] = torch.tensor(50 if case == "budget" else 3,
+                                      dtype=torch.int32, device=dev)
+            if i_brk is not None:
+                state[i_brk] = torch.tensor(case == "breakdown", device=dev)
+            guard = (torch.tensor(3.0 if case == "met" else 0.0, dtype=f64,
+                                  device=dev),
+                     torch.tensor(50.0, dtype=f64, device=dev))
+            prog = torch.zeros(5, dtype=f64, device=dev)
+            # a non-finite ||r||^2 is recorded as it is: compared apart
+            lo = 1 if case in ("inf", "nan") else 0
+            kernel = lambda m=method, st=state, g=guard, p=prog, lo=lo: (
+                loop_guard(m, st, g, p), p[lo:3])
+            plain = lambda m=method, st=state, g=guard, lo=lo: (
+                tk.loop_active(m, st, g).int(), tk.loop_record(m, st)[lo:])
+            rec = compare(f"loop_guard {method} {case}", kernel, plain,
+                          results, time_it=(method, case) == ("cg",
+                                                              "active"),
+                          work=(GUARD_BYTES, GUARD_BYTES, 0),
+                          same_bits=True)
+            got, want = kernel()[0].item(), tk.loop_continue(method, state,
+                                                              guard)
+            assert bool(got) == want == (case == "active"), (rec, got)
+            if lo:
+                assert torch.equal(prog[:1].isnan(), state[i_rr].isnan()
+                                   .reshape(1)) and prog[0].item() \
+                    != 0.0, (case, prog)
+
+
 def uncaptured(solver):
-    """A shallow copy of `solver` whose chunks run eagerly: Python sees
+    """A shallow copy of `solver` whose loop runs eagerly: Python sees
     every call of a solve (a replayed CUDA graph makes none)."""
     s = copy.copy(solver)
     s.capture = False
@@ -514,12 +579,13 @@ HOST_CONFIGS = ("aniso2d_1024_eps1e-3_rot45_aggW_bicgstab",)
 def wrapper_of(kernel_name):
     """The wrapper of one of the package's kernels, by the kernel's name in
     a profiler trace (dia_tile's second template argument is the tail,
-    the index of its wrapper in dia_spmv.WRAPPERS); None for others."""
+    the index of its wrapper in dia_spmv.WRAPPERS; the loop guard is
+    loop_guard); None for others."""
     from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
     m = re.search(r"::dia_tile<[^,]+, (\d+),", kernel_name)
     if m:
         return WRAPPERS[int(m.group(1))].__name__
-    for name in ("block_ell_spmv", "ell_spmv"):
+    for name in ("block_ell_spmv", "ell_spmv", "loop_guard"):
         if f"::{name}" in kernel_name:
             return name
     return None
@@ -556,30 +622,48 @@ def host_mode_check(tag, solver, rhs, A, b):
         (tag, res, dev_res)
 
 
+def device_mode_check(tag, solver, res, launches):
+    """A device-mode solve ran each pass as one pass graph launch: the
+    solver's pass graphs are built, one host read per pass, no masked
+    step, and the guard launched k + 1 times per pass."""
+    loop = solver._loop()
+    assert solver.krylov.loop_mode == "device", (tag, solver.krylov)
+    assert loop.passes and all(p.exec is not None
+                               for p in loop.passes.values()), tag
+    assert res.masked_steps == 0, (tag, res.masked_steps)
+    assert res.host_reads == res.refine_passes, (tag, res.host_reads, res)
+    assert launches["loop_guard"] == res.iterations + res.refine_passes, \
+        (tag, launches["loop_guard"], res)
+
+
 def loop_phase(solver, rhs, A, b):
-    """Phase 4b on the flagship: the device mode replayed from CUDA graphs
-    against the same solve launched eagerly with chunk 1 (counts equal,
+    """Phase 4b on the flagship: the device mode from WHILE-node pass
+    graphs against the same passes launched eagerly (the guard kernel
+    before every step, one read per step: chunk 1's reads; counts equal,
     relres within 1e-12 relative; whether x has the same bits is
     printed), the host mode at chunk HOST_CHUNK, and the launches that
-    counted() reports over one replay of the main chunk against the
-    kernels the profiler sees."""
+    counted() reports over one pass graph launch and over one replay of
+    the step graph and of the host mode's main chunk, against the
+    bookkeeping and the kernels the profiler sees."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from sparsh_amg_tpu_torch.ops import counted
     # both copies start from the solver's estimates: the same solve
     cap, eager = copy.copy(solver), uncaptured(solver)
     eager.krylov = dataclasses.replace(solver.krylov, chunk=1)
-    r_cap = cap.solve(rhs)
+    r_cap, l_cap = counted(lambda: cap.solve(rhs))
     r_eager = eager.solve(rhs)
     same_bits = bool(np.array_equal(r_cap.x, r_eager.x))
     print(json.dumps({
         "captured_vs_eager": "poisson3d", "captured": [
             r_cap.iterations, r_cap.refine_passes, r_cap.relres,
-            r_cap.solve_time, r_cap.masked_steps],
+            r_cap.solve_time, r_cap.masked_steps, r_cap.host_reads],
         "eager_chunk1": [r_eager.iterations, r_eager.refine_passes,
-                         r_eager.relres, r_eager.solve_time],
+                         r_eager.relres, r_eager.solve_time,
+                         r_eager.host_reads],
         "x_same_bits": same_bits,
-        "graph_seconds": solver.graph_seconds()}), flush=True)
+        "graph_seconds": solver.graph_seconds(),
+        "pass_graph_seconds": solver.pass_graph_seconds()}), flush=True)
     if not same_bits:
         print("captured device mode and eager chunk 1 gave x with other "
               "bits", flush=True)
@@ -587,27 +671,59 @@ def loop_phase(solver, rhs, A, b):
         (r_eager.iterations, r_eager.refine_passes), (r_cap, r_eager)
     assert abs(r_cap.relres - r_eager.relres) <= 1e-12 * r_eager.relres, \
         (r_cap.relres, r_eager.relres)
-    assert r_cap.converged and r_cap.masked_steps >= 0
+    assert r_cap.converged
+    device_mode_check("poisson3d", cap, r_cap, l_cap)
+    # the eager passes read the guard after every step
+    assert r_eager.host_reads == r_eager.iterations + 2 * \
+        r_eager.refine_passes, r_eager
 
     host_mode_check("poisson3d", solver, rhs, A, b)
 
-    # launch accounting under replay: one replay of the main chunk
-    g = solver._loop().graph(True, solver.krylov.chunk)
-    assert g.graph is not None, "the flagship's main chunk was not captured"
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, counts = counted(g.run)
+    def profiled(fn):
         torch.cuda.synchronize()
-    seen = {}
-    for e in prof.events():
-        w = wrapper_of(e.name)
-        if w and getattr(e.device_type, "name", "") == "CUDA":
-            seen[w] = seen.get(w, 0) + 1
-    counts = {k: v for k, v in counts.items() if v}
-    print(json.dumps({"replay_launches_counted": counts,
-                      "replay_kernels_profiled": seen,
-                      "chunk": solver.krylov.chunk}), flush=True)
-    assert counts and counts == seen, (counts, seen)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out, counts = counted(fn)
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.events():
+            w = wrapper_of(e.name)
+            if w and getattr(e.device_type, "name", "") == "CUDA":
+                seen[w] = seen.get(w, 0) + 1
+        return out, {k: v for k, v in counts.items() if v}, seen
+
+    # launch accounting under replay: one pass graph launch, then one
+    # replay of its step graph and of the host mode's main chunk
+    loop = solver._loop()
+    loop.b64.copy_(rhs.b)
+    loop.set_limits(1e-4, solver.krylov.maxiter)
+    (prog, _), counts, seen = profiled(loop.pass_graph(True).run)
+    k = int(prog[1])
+    want = {}
+    for g, times in ((loop.cast, 1), (loop.init, 1), (loop.step, k),
+                     (loop.finish, 1)):
+        for w, n in g.per_replay.items():
+            want[w.__name__] = want.get(w.__name__, 0) + n * times
+    want["loop_guard"] = k + 1
+    _, step_counts, step_seen = profiled(loop.step.run)
+    main = loop.chunks[HOST_CHUNK]
+    _, chunk_counts, chunk_seen = profiled(main.run)
+    print(json.dumps({
+        "pass_graph_launches_counted": counts, "pass_graph_iterations": k,
+        "pass_graph_kernels_profiled": seen,
+        "step_launches_counted": step_counts,
+        "step_kernels_profiled": step_seen,
+        "step_graph_nodes": loop.step.node_kinds(),
+        "chunk_launches_counted": chunk_counts,
+        "chunk_kernels_profiled": chunk_seen,
+        "chunk": HOST_CHUNK}), flush=True)
+    # the profiler reports a WHILE body's kernels once per launch
+    assert k > 1 and counts == want, (counts, want)
+    assert set(seen) == set(counts) and all(
+        1 <= seen[w] <= counts[w] for w in counts), (counts, seen)
+    assert step_counts and step_counts == step_seen, (step_counts,
+                                                      step_seen)
+    assert chunk_counts and chunk_counts == chunk_seen, (chunk_counts,
+                                                         chunk_seen)
 
 
 def systems_phase(dim, rng, results, dev):
@@ -690,6 +806,7 @@ def systems_phase(dim, rng, results, dev):
     assert abs(res.iterations - want["iterations"]) <= slack, (res, want)
     assert res.refine_passes == want["refine_passes"], (res, want)
     assert launches["block_ell_spmv"] > 0 and launches["ell_spmv"] > 0
+    device_mode_check(name, solver, res, launches)
     if dim == 2:
         assert launches["dia_cheb_step"] > 0 and launches["dia_spmv"] > 0
     return launches
@@ -864,6 +981,7 @@ def config_phase(name, rng, results, dev):
         assert launches[w] > 0, f"{name}: {w} not launched during the solve"
     for op in CONFIG_CALLS.get(name, ()):
         assert per_op[op] > 0, f"{name}: no SpMV on {op} during the solve"
+    device_mode_check(name, solver, res, launches)
     if name in HOST_CONFIGS:
         host_mode_check(CONFIG_TAGS[name], solver, rhs, A, b)
     return launches
@@ -913,6 +1031,16 @@ def child_json(script, *args, timeout=600):
                           if line.startswith("{")]
 
 
+def bench_loop_check(tag, out):
+    """A bench line's device mode ran from pass graphs (built, so
+    pass_graph_s > 0), one read per pass and no masked step."""
+    dev = out["loop_mode_counts"]["device"]
+    assert out["pass_graph_s"] > 0, (tag, out["pass_graph_s"])
+    assert out["loop_mode_host_reads"]["device"] == dev[1], (tag, out)
+    assert out["masked_steps"] == 0, (tag, out["masked_steps"])
+    assert out["launches"]["loop_guard"] > 0, (tag, out["launches"])
+
+
 def bench_phase(gpu_name):
     """Phase 7: bench_torch.py on the flagship and kernel_bench_torch.py,
     each as a child process.  Returns the bench's launch counts."""
@@ -929,6 +1057,7 @@ def bench_phase(gpu_name):
         [ref["iterations"], ref["refine_passes"]], out
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
+    bench_loop_check("bench_torch.py", out)
     for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
                  "dia_cheb_step", "ell_spmv"):
         assert out["launches"][name] > 0, \
@@ -1007,6 +1136,7 @@ def dist_phase(gpu_name, rng, results, dev):
         [ref["iterations"], ref["refine_passes"]], out
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
+    bench_loop_check("bench_torch.py --dist 1", out)
     # DistDia smooths through the generic residual and SpMV (as the JAX
     # package's distributed levels do): the fused tails stay unlaunched
     for name in ("dia_spmv", "ell_spmv"):
@@ -1015,8 +1145,9 @@ def dist_phase(gpu_name, rng, results, dev):
     paths.append(out["launches"])
     print(f"phase_s 8a {time.perf_counter() - t0:.1f} bench --dist 1 nccl "
           f"iters={out['iterations']} passes={out['refine_passes']} "
-          f"relres={out['relres_host_fp64']:.4e} solve_s={out['solve_s']}",
-          flush=True)
+          f"relres={out['relres_host_fp64']:.4e} solve_s={out['solve_s']} "
+          f"loop_mode_ab_s={out['loop_mode_ab_s']} "
+          f"pass_graph_s={out['pass_graph_s']}", flush=True)
 
     # (b) the dry run: 4 ranks sharing the card through gloo
     t0 = time.perf_counter()
@@ -1165,6 +1296,7 @@ def main(nside=192, dev="cuda"):
     dia_cases("L0 cycle operator", L0.A.bands, L0.A.offsets, rng, flag,
               time_it=True, n_rows=A.shape[0])
     operator_cases("", levels, rng, flag, timed={"P0", "R0", "A1"})
+    guard_cases(flag, dev)
 
     # -- 4. the flagship solve ---------------------------------------------
     b = np.random.default_rng(0).standard_normal(A.shape[0])
@@ -1197,6 +1329,7 @@ def main(nside=192, dev="cuda"):
     for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
                  "dia_cheb_step", "ell_spmv"):
         assert launches[name] > 0, f"{name} not launched during the solve"
+    device_mode_check("poisson3d", solver, res, launches)
     t0 = time.perf_counter()
     loop_phase(solver, rhs, A, b)
     print(f"phase_s 4b {time.perf_counter() - t0:.1f}", flush=True)
@@ -1302,6 +1435,10 @@ def main(nside=192, dev="cuda"):
         entry("block_ell_spmv", "block_ell_spmv.cu", ("block_ell_spmv",),
               "block_ell_spmv e3d L0 fp32",
               "sparsh_amg_tpu/ops/block_gell.py:147"),
+        # the port's own: the condition of the JAX device mode's
+        # lax.while_loop, a traced predicate there and no Pallas kernel
+        entry("loop_guard", "graph_loop.cu", ("loop_guard",),
+              "loop_guard cg active", "sparsh_amg_tpu/solve/krylov.py:73"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 
     python3 scripts/torch_profile_solve.py [--root DIR] [--configs e3d e2d p3d]
     python3 scripts/torch_profile_solve.py --configs aniso2d_2048_eps1e-3_rot45_aggW_bicgstab
-    python3 scripts/torch_profile_solve.py --configs p3d --modes device:12 host:12 eager:1
+    python3 scripts/torch_profile_solve.py --configs p3d --modes device host:12 eager
+    python3 scripts/torch_profile_solve.py --configs p3d --while-cost
 
 For each configuration (e3d: elasticity3d(40), e2d: elasticity2d(512), p3d:
 the flagship poisson3d(192), or the name of one of configs.py's seven) it
@@ -16,17 +17,31 @@ union of the events' intervals), the number of events and the device time
 by kernel name, and counts the kernel wrappers' launches in that solve.
 
 --modes places the Krylov loop (``KrylovParams.loop_mode`` and ``chunk``)
-for each run in turn: ``device:K`` and ``host:K`` (K iterations per
-chunk, each chunk one CUDA graph replay) and ``eager:K`` (device mode
-with the chunks launched from Python, uncaptured).  Each mode runs on a
+for each run in turn: ``device`` (each refinement pass one launch of a
+graph with a WHILE node; ``device:K`` is the same, K unused), ``host:K``
+(K iterations per chunk, each chunk one CUDA graph replay) and ``eager``
+(the device mode's passes launched from Python, uncaptured, one read per
+step).  Each mode runs on a
 shallow copy of the freshly set-up solver with graphs and estimates of
 its own (the hierarchy is shared; the copy and its graphs are freed
 before the next mode, so the peaks are the mode's alone), is warmed
-(``warm()``: its graphs' capture and instantiation seconds are
-reported), primed and timed alike, with the allocator's
-peaks (in use and reserved, graph pools included) over its timed solves
-and the steps replayed past the end of a pass (``masked_steps``).
+(``warm()``: its graphs' capture and instantiation seconds and the pass
+graphs' build seconds are reported), primed and timed alike, with the
+allocator's peaks (in use and reserved, graph pools included) over its
+timed solves, ``masked_steps`` and ``host_reads``.  The profiler reports
+the kernels of a WHILE node's body once per launch, not once per
+iteration, so in the device mode its busy time misses the later
+iterations: there ``pass_device_ms`` (CUDA events around each pass graph
+launch of the profiled solve) and ``pass_device_share`` (their sum over
+the solve's wall time) give the device's busy time and share instead.
 One JSON line per configuration and mode.
+
+--while-cost measures the WHILE node's own cost per iteration: with the
+budget binding (tol 1e-30), the device time of one pass graph with K1 and
+K2 iterations against the same pass replayed as its pieces (start, one
+chunk graph of K steps, finish); the difference of the two slopes over K
+is what the loop adds per iteration (the guard kernel node and the
+conditional node).  One JSON line per configuration.
 
 --root names the checkout whose ``sparsh_amg_tpu_torch`` is imported
 (default: the one holding this script), so one call can time a parent
@@ -77,17 +92,32 @@ def _busy(intervals):
 
 
 def _wrappers():
-    """The kernel wrappers, whose `launches` count their kernel launches."""
+    """The kernel wrappers, whose `launches` count their kernel launches
+    (an older checkout has no loop guard)."""
     from sparsh_amg_tpu_torch.ops import dia_spmv
     from sparsh_amg_tpu_torch.ops.block_ell import block_ell_spmv
     from sparsh_amg_tpu_torch.ops.ell_spmv import ell_spmv
-    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv)
+    try:
+        from sparsh_amg_tpu_torch.solve.graphs import loop_guard
+    except ImportError:
+        return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv)
+    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, loop_guard)
+
+
+def _placement(spec, kr):
+    """(capture, KrylovParams) of a --modes entry."""
+    import dataclasses
+    mode, _, k = spec.partition(":")
+    if mode not in ("device", "host", "eager"):
+        raise SystemExit(f"unknown mode {spec!r}: device, host:K or eager")
+    chunk = int(k) if k else kr.chunk
+    return mode != "eager", dataclasses.replace(
+        kr, loop_mode="device" if mode == "eager" else mode, chunk=chunk)
 
 
 def profile_all(cfg, modes, dev):
     """One record per mode of `modes` ("device:K", "host:K", "eager:K")
     on one solver of configuration `cfg`."""
-    import dataclasses
     import torch
     from sparsh_amg_tpu_torch import AMGSolver
     A, ns, p, kr, prime = _problem(cfg)
@@ -97,11 +127,7 @@ def profile_all(cfg, modes, dev):
     for spec in modes:
         solver = copy.copy(fresh)
         solver._reset_loop_state()
-        mode, k = spec.split(":")
-        solver.capture = mode != "eager"
-        solver.krylov = dataclasses.replace(
-            kr, loop_mode="device" if mode == "eager" else mode,
-            chunk=int(k))
+        solver.capture, solver.krylov = _placement(spec, kr)
         graphs0 = solver.graph_seconds()
         t0 = time.perf_counter()
         solver.warm()
@@ -112,6 +138,8 @@ def profile_all(cfg, modes, dev):
         rec.update(config=cfg, mode=spec, warm_s=warm_s,
                    capture_s=graphs1[0] - graphs0[0],
                    instantiate_s=graphs1[1] - graphs0[1],
+                   pass_graph_s=getattr(solver, "pass_graph_seconds",
+                                        lambda: None)(),
                    setup_s=solver.setup_time)
         del solver
         gc.collect()
@@ -132,7 +160,7 @@ def profile_one(solver, A, b, rhs, prime):
     for _ in range(SOLVES):
         res = solver.solve(rhs)
         runs.append((res.solve_time, res.iterations, res.refine_passes,
-                     res.masked_steps))
+                     res.masked_steps, getattr(res, "host_reads", None)))
     relres = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
     torch.cuda.synchronize()
     peaks = (torch.cuda.max_memory_allocated(),
@@ -147,10 +175,12 @@ def profile_one(solver, A, b, rhs, prime):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in wrappers}
+    pass_ms = _pass_device_ms(solver, rhs)
     dev_events = [e for e in prof.events()
                   if getattr(e.device_type, "name", "") == "CUDA"]
     out = {"iterations": [r[1] for r in runs], "history": res.history,
            "passes": [r[2] for r in runs], "masked_steps": [r[3] for r in runs],
+           "host_reads": [r[4] for r in runs],
            "relres_host_fp64": relres,
            "solve_peak_bytes": peaks[0], "solve_peak_reserved_bytes": peaks[1],
            "solve_s_first": runs[0][0],
@@ -158,6 +188,9 @@ def profile_one(solver, A, b, rhs, prime):
            "solve_s_all": [r[0] for r in runs],
            "profiled_solve_s": wall, "profiled_iterations": res.iterations,
            "launches": launches}
+    if pass_ms is not None:
+        out["pass_device_ms"] = pass_ms[0]
+        out["pass_device_share"] = sum(pass_ms[0]) / (pass_ms[1] * 1e3)
     if not dev_events:
         out["profile"] = "not measured: no device events in the trace"
         return out
@@ -178,16 +211,137 @@ def profile_one(solver, A, b, rhs, prime):
     return out
 
 
+def _pass_device_ms(solver, rhs):
+    """([device ms of each pass graph], wall s) of one more solve, from
+    CUDA events around each pass graph launch; None when the solve runs
+    no pass graph (host mode, eager, an older checkout)."""
+    import torch
+    try:
+        from sparsh_amg_tpu_torch.solve.graphs import PassGraph
+    except ImportError:
+        return None
+    if solver.krylov.loop_mode != "device" or not solver.capture:
+        return None
+    events = []
+    launch = PassGraph.launch
+
+    def timed_launch(self):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        launch(self)
+        ev[1].record()
+        events.append(ev)
+    PassGraph.launch = timed_launch
+    try:
+        t0 = time.perf_counter()
+        solver.solve(rhs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PassGraph.launch = launch
+    return [a.elapsed_time(b) for a, b in events], wall
+
+
+def interleaved(cfg, modes, rounds, dev):
+    """{mode: [(solve s, iterations, passes)]} of `rounds` rounds of one
+    solve in each mode, in turn, on copies of one solver (see
+    --interleave)."""
+    import torch
+    from sparsh_amg_tpu_torch import AMGSolver
+    A, ns, p, kr, prime = _problem(cfg)
+    fresh = AMGSolver(A, p, kr, nullspace=ns, device=dev)
+    rhs = fresh.prepare_rhs(np.random.default_rng(0).standard_normal(
+        A.shape[0]))
+    solvers = {}
+    for spec in modes:
+        solver = copy.copy(fresh)
+        solver.capture, solver.krylov = _placement(spec, kr)
+        solver.warm()
+        solver.solve(rhs, tol=prime or 1e-2)
+        solvers[spec] = solver
+    torch.cuda.synchronize()
+    runs = {spec: [] for spec in modes}
+    for _ in range(rounds):
+        for spec, solver in solvers.items():
+            res = copy.copy(solver).solve(rhs)
+            runs[spec].append((res.solve_time, res.iterations,
+                               res.refine_passes))
+    return {"config": cfg, "interleaved": runs,
+            "median_s": {k: statistics.median(t for t, _, _ in v)
+                         for k, v in runs.items()}}
+
+
+WHILE_KS = (4, 12)
+WHILE_REPS = 10
+
+
+def while_cost(cfg, dev):
+    """The WHILE node's cost per iteration on configuration `cfg` (see
+    --while-cost)."""
+    import dataclasses
+    import torch
+    from sparsh_amg_tpu_torch import AMGSolver
+    A, ns, p, kr, _ = _problem(cfg)
+    solver = AMGSolver(A, p, dataclasses.replace(
+        kr, loop_mode="device", chunk=max(WHILE_KS)), nullspace=ns,
+        device=dev)
+    solver.warm()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    loop = solver._loop()
+    loop.b64.copy_(solver.prepare_rhs(b).b)
+    pg = loop.pass_graph(True)
+    pieces = {k: [loop.cast, loop.init, loop.chunk(k), loop.finish]
+              for k in WHILE_KS}
+    for gs in pieces.values():
+        for g in gs:
+            g.run()                     # instantiate outside the timing
+
+    def device_ms(fn):
+        torch.cuda.synchronize()
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(WHILE_REPS):
+            fn()
+        z.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(z) / WHILE_REPS
+
+    rec = {"config": cfg, "method": kr.method, "reps": WHILE_REPS}
+    for k in WHILE_KS:
+        loop.set_limits(1e-30, k)
+        pg.launch()
+        iters = int(loop.prog[1].item())
+        assert iters == k, (iters, k)
+        rec[f"pass_graph_ms_k{k}"] = device_ms(pg.launch)
+        rec[f"pieces_ms_k{k}"] = device_ms(
+            lambda gs=pieces[k]: [g.graph.replay() for g in gs])
+    k1, k2 = WHILE_KS
+    slope = lambda key: (rec[f"{key}_ms_k{k2}"] - rec[f"{key}_ms_k{k1}"]) \
+        / (k2 - k1)
+    rec["pass_graph_ms_per_iter"] = slope("pass_graph")
+    rec["chunk_ms_per_step"] = slope("pieces")
+    rec["while_ms_per_iter"] = rec["pass_graph_ms_per_iter"] \
+        - rec["chunk_ms_per_step"]
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--configs", nargs="+", default=["e3d", "e2d", "p3d"],
                     help="e3d, e2d, p3d, or names from configs.NAMES")
-    ap.add_argument("--modes", nargs="+", default=["device:4"],
-                    help="loop placements to run in turn: device:K, host:K "
-                         "or eager:K (default device:4, the "
-                         "configurations' own)")
+    ap.add_argument("--modes", nargs="+", default=["device"],
+                    help="loop placements to run in turn: device, host:K "
+                         "or eager (default device, the configurations' "
+                         "own)")
+    ap.add_argument("--interleave", type=int, default=0, metavar="R",
+                    help="R rounds of one solve per mode in turn, in one "
+                         "process, instead of profiling")
+    ap.add_argument("--while-cost", action="store_true",
+                    help="measure the WHILE node's cost per iteration "
+                         "instead of profiling solves")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -201,7 +355,13 @@ def main():
     assert sparsh_amg_tpu_torch.__file__.startswith(root), \
         sparsh_amg_tpu_torch.__file__
     for cfg in args.configs:
-        for rec in profile_all(cfg, args.modes, "cuda"):
+        if args.while_cost:
+            recs = [while_cost(cfg, "cuda")]
+        elif args.interleave:
+            recs = [interleaved(cfg, args.modes, args.interleave, "cuda")]
+        else:
+            recs = profile_all(cfg, args.modes, "cuda")
+        for rec in recs:
             rec.update(root=root, gpu=gpu)
             print(json.dumps(rec), flush=True)
         torch.cuda.empty_cache()

@@ -55,6 +55,18 @@ _ENTRIES = {
     # the split-row launch's limits (csrc/split_rows.cuh); no CUDA call
     "split_max_lanes": [],
     "split_max_cluster": [],
+    # csrc/graph_loop.cu.  rr, k, brk (or None), target, budget, prog, go,
+    # stream
+    "loop_guard_launch": [_p, _p, _p, _p, _p, _p, _p, _p],
+    # heads (void*[]), n_heads, body, tails (void*[]), n_tails, rr, k, brk,
+    # target, budget, prog, exec_out (void**), msg, msg_len, stream
+    "pass_graph_create": [_p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p,
+                          _p, _i, _p],
+    # exec, stream; exec
+    "pass_graph_launch": [_p, _p],
+    "pass_graph_destroy": [_p],
+    # graph, counts (int[n]), n
+    "graph_node_counts": [_p, _p, _i],
 }
 
 

@@ -9,10 +9,12 @@ results.
 The solve runs on the GPU (``--device cuda``, the default) and raises when
 there is none; ``--device cpu`` runs the kernels' plain PyTorch versions.
 ``--loop-mode`` (host, device or auto) and ``--chunk`` place the Krylov
-loop as in the JAX CLI (``KrylovParams``): chunks of iterations, each
-replayed as one CUDA graph on the card (run eagerly on the CPU), with the
-host reading convergence once per chunk; the device mode predicates every
-step, so its counts are exact.
+loop as in the JAX CLI (``KrylovParams``): the device mode runs each
+refinement pass as one device-resident loop (one CUDA graph launch with a
+WHILE node on the card, read once per pass), so its counts are exact; the
+host mode runs chunks of ``--chunk`` iterations, each one CUDA graph
+replay, with the host reading convergence once per chunk.  On the CPU the
+same pieces run eagerly.
 
 ``--dist N`` row-shards the solve over N ranks, one process each
 (``parallel/``): with N > 1 this process starts N rank processes of the
@@ -92,8 +94,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="Krylov loop placement (see KrylovParams; auto "
                         "probes the per-dispatch RTT)")
     p.add_argument("--chunk", type=int, default=4,
-                   help="Krylov iterations per chunk (one CUDA graph "
-                        "replay on the card)")
+                   help="Krylov iterations per chunk of the host loop "
+                        "mode (one CUDA graph replay on the card)")
     p.add_argument("--reorder", default="auto",
                    choices=["auto", "rcm", "none"])
     p.add_argument("--dist", type=int, default=0, metavar="N",

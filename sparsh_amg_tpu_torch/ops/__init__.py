@@ -2,11 +2,13 @@
 
 
 def kernel_wrappers() -> tuple:
-    """Every kernel wrapper; each counts its launches in ``launches``."""
+    """Every kernel wrapper; each counts its launches in ``launches``
+    (the loop guard of the device loop mode's pass graphs included)."""
+    from ..solve.graphs import loop_guard
     from . import dia_spmv
     from .block_ell import block_ell_spmv
     from .ell_spmv import ell_spmv
-    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv)
+    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, loop_guard)
 
 
 def counted(fn):

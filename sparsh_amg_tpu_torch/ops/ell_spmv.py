@@ -48,8 +48,11 @@ def ell_plain(M, x: torch.Tensor) -> torch.Tensor:
     C, TV = 32 // M.lanes, M.lanes * M.vec
     prod = M.vals * torch.index_select(x, 0, M.cols)
     steps = prod.view(-1, C, TV).sum(dim=-1)     # (every slice's steps, C)
+    # unsafe: no host check of the lengths (the packer's), so the sum
+    # captures in a CUDA graph (the fp64 residual inside the pass graphs)
     rows = torch.segment_reduce(steps, "sum", axis=0,
-                                lengths=M.slice_width.long() // TV)
+                                lengths=M.slice_width.long() // TV,
+                                unsafe=True)
     rows = rows.reshape(-1)[: M.n_pad]
     if not M.perm.numel():                  # rows in their own order
         return rows

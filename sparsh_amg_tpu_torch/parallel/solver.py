@@ -3,14 +3,18 @@
 
 One process per rank of a ``torch.distributed`` process group; each rank
 holds its row block of every distributed level on its own device.  Every
-rank runs the serial solver's loop (``AMGSolver``: Krylov chunks in the
-host or device loop mode, one read per chunk, fp64 iterative
-refinement) on its block, its chunks uncaptured: the serial
-cycle, smoothers and Krylov steps apply unchanged, since the distributed
-operators have the serial ones' ``spmv``, the coarse level its
-``coarse_solve``, and the dots are ``pdot`` (each rank's fp64 partial,
-one all-reduce).  The all-reduced ||r||^2 gives every rank the same
-control flow.
+rank runs the serial solver's loop (``AMGSolver``: each refinement pass
+one device-resident loop in the device mode, Krylov chunks with one read
+each in the host mode, fp64 iterative refinement) on its block: the
+serial cycle, smoothers and Krylov steps apply unchanged, since the
+distributed operators have the serial ones' ``spmv``, the coarse level
+its ``coarse_solve``, and the dots are ``pdot`` (each rank's fp64
+partial, one all-reduce).  The all-reduced ||r||^2 gives every rank the
+same control flow, on the device as on the host.  A single rank issues
+no collective, and captures the loop's graphs as the serial solver does
+(the JAX package runs the device mode as one loop over the mesh,
+``sparsh_amg_tpu/parallel/solver.py:441-443``); several ranks run them
+eagerly (see ``_begin``).
 
 Three constructors, as in the JAX package:
 
@@ -78,10 +82,6 @@ class DistAMGSolver(AMGSolver):
     >>> res = solver.solve(b)                      # res.x: the full x
     """
 
-    # The chunks run eagerly on every backend: gloo stages every halo and
-    # dot through host buffers, which a CUDA graph cannot capture.
-    capture = False
-
     def __init__(self, A: sp.csr_matrix, group=None,
                  params: AMGParams | None = None,
                  krylov: KrylovParams | None = None,
@@ -112,6 +112,13 @@ class DistAMGSolver(AMGSolver):
             check_backend(dist.get_backend(ranks.group), ranks.size,
                           self.torch_device)
         self.ranks = ranks
+        # Several ranks run the loop eagerly.  gloo stages every halo and
+        # dot through host buffers, which a CUDA graph cannot capture.
+        # NCCL's captured collectives carry event record and wait nodes,
+        # which a WHILE body refuses (the device mode's pass graph fails
+        # to instantiate), and four NCCL ranks on four H100s hung in the
+        # host mode's first replays.  One rank issues no collective.
+        self.capture = ranks.size == 1
         self.params = params or AMGParams()
         krylov = krylov or KrylovParams()
         self.krylov = check_krylov(krylov, self.torch_device)

@@ -223,12 +223,13 @@ class KrylovParams:
                                        # cycle iteration, no Krylov)
     tol: float = 1e-8                  # relative residual target
     maxiter: int = 500
-    # Iteration-loop placement (SURVEY.md §3.1): the Krylov loop runs in
-    # chunks of `chunk` iterations, each one CUDA graph replay on the
-    # card, with one host read of convergence per chunk.  "host" steps
-    # every chunk to its end (up to chunk-1 iterations past a pass's
-    # end, as the JAX host mode); "device" predicates each step on the
-    # device, so the counts are exact (the JAX lax.while_loop's).
+    # Iteration-loop placement (SURVEY.md §3.1): "device" runs each
+    # refinement pass as one device-resident loop (on the card one CUDA
+    # graph launch with a WHILE node, one host read per pass), so the
+    # counts are exact (the JAX lax.while_loop's); "host" runs chunks of
+    # `chunk` iterations, each one CUDA graph replay, with one host read
+    # of convergence per chunk, stepping every chunk to its end (up to
+    # chunk-1 iterations past a pass's end, as the JAX host mode).
     # "auto" probes one launch and scalar read at solver build and picks
     # "device" when it is < 1 ms (utils.timing.resolve_loop_mode).
     loop_mode: str = "host"            # host | device | auto

@@ -10,11 +10,19 @@ device, so a chunk runs with no host sync and captures as a CUDA graph.
 
 A chunk (``pcg_chunk``, ``bicgstab_chunk``, ``stationary_chunk``) is k
 calls of the step with no data-dependent control flow: the host loop
-mode, which may step up to k-1 times past convergence.  With a ``guard``
-each step is predicated on the device (``masked``), the device loop
-mode: a step past convergence, the iteration budget or a BiCGStab
-breakdown changes no bit of the state and does not count, so the counts
-are those of the JAX package's ``lax.while_loop``.
+mode, which may step up to k-1 times past convergence.  The device loop
+mode steps one at a time on fixed buffers, with the steps' in-place
+forms (``pcg_step_``, ``bicgstab_step_``, ``stationary_step_``: the same
+bits, no copy of the state per step).
+
+``loop_continue`` is the condition of the JAX package's device-mode
+``lax.while_loop`` (``sparsh_amg_tpu/solve/krylov.py:73-77``, ``:164-167``,
+``:227-230``): ||r||^2 finite and above the pass's target, k below its
+budget, and (BiCGStab) no breakdown.  The device loop mode steps while it
+holds: on the card inside one CUDA graph (``solve/graphs.py``, the guard
+kernel of ``csrc/graph_loop.cu``), on the CPU in a Python loop.  With a
+``guard`` a chunk's steps are predicated on it (``masked``): a step past
+convergence, the budget or a breakdown changes no bit of the state.
 """
 from __future__ import annotations
 
@@ -95,6 +103,57 @@ def bicgstab_step(matvec, precond, _dot, rhat, state):
     return (x, r, v, p, rho_new, alpha, omega, _dot(r, r), k + 1, frozen)
 
 
+def pcg_step_(matvec, precond, _dot, state) -> None:
+    """``pcg_step`` advancing the state's buffers in place: the same
+    operations in the same order (the same bits), each vector written
+    where it lies instead of copied back after the step.  z, which the
+    next step recomputes from r, keeps its old value."""
+    x, r, _, p, rz_, rr_, k = state
+    q = matvec(p)
+    pq = _dot(p, q)
+    alpha = rz_ / torch.where(pq != 0, pq, 1.0)
+    x.add_(alpha * p)
+    r.sub_(alpha * q)
+    z = precond(r)
+    rz_new = _dot(r, z)
+    beta = rz_new / torch.where(rz_ != 0, rz_, 1.0)
+    torch.add(z, beta * p, out=p)
+    rz_.copy_(rz_new)
+    rr_.copy_(_dot(r, r))
+    k.add_(1)
+
+
+def bicgstab_step_(matvec, precond, _dot, rhat, state) -> None:
+    """``bicgstab_step`` advancing the state's buffers in place (see
+    ``pcg_step_``)."""
+    x, r, v, p, rho, alpha, omega, rr, k, brk = state
+    rho_new = _dot(rhat, r)
+    breakdown = (rho_new == 0) | (omega == 0)
+    beta = (rho_new / torch.where(rho != 0, rho, 1.0)) * \
+           (alpha / torch.where(omega != 0, omega, 1.0))
+    torch.add(r, beta * (p - omega * v), out=p)
+    phat = precond(p)
+    v_new = matvec(phat)
+    rhat_v = _dot(rhat, v_new)
+    alpha_new = rho_new / torch.where(rhat_v != 0, rhat_v, 1.0)
+    s = r - alpha_new * v_new
+    shat = precond(s)
+    t = matvec(shat)
+    tt = _dot(t, t)
+    omega_new = _dot(t, s) / torch.where(tt != 0, tt, 1.0)
+    x_new = x + alpha_new * phat + omega_new * shat
+    frozen = brk | breakdown
+    torch.where(frozen, x, x_new, out=x)
+    torch.where(frozen, r, s - omega_new * t, out=r)
+    v.copy_(v_new)
+    rho.copy_(rho_new)
+    alpha.copy_(alpha_new)
+    omega.copy_(omega_new)
+    rr.copy_(_dot(r, r))
+    k.add_(1)
+    brk.copy_(frozen)
+
+
 def stationary_init(matvec, precond, b, _dot, x0=None):
     """The standalone multigrid iteration x += M^-1 r (method "amg")."""
     if x0 is None:
@@ -114,22 +173,66 @@ def stationary_step(matvec, precond, _dot, state):
     return (x, r, _dot(r, r), k + 1)
 
 
-def masked(step, method: str, guard):
-    """`step` predicated on the device: active = ||r||^2 finite and above
-    target, k below maxiter, and (BiCGStab) no breakdown yet.  An active
-    step gives the plain step's bits; an inactive one leaves every state
-    entry bit for bit unchanged and k where it was.  guard = (target,
-    maxiter): 0-d device tensors (fp64 and int32) that the host fills
-    before a pass, read on the device at every step."""
+def stationary_step_(matvec, precond, _dot, state) -> None:
+    """``stationary_step`` advancing the state's buffers in place (see
+    ``pcg_step_``)."""
+    x, r, rr, k = state
+    e = precond(r)
+    x.add_(e)
+    r.sub_(matvec(e))
+    rr.copy_(_dot(r, r))
+    k.add_(1)
+
+
+def loop_active(method: str, state, guard) -> torch.Tensor:
+    """The loop condition as a 0-d bool tensor on the state's device (no
+    host read): ||r||^2 finite and above target, k below maxiter, and
+    (BiCGStab) no breakdown yet.  guard = (target, maxiter): 0-d tensors
+    on the state's device (fp64; maxiter fp64 or int32) that the host
+    fills before a pass."""
     i_rr, i_k, i_brk = READS[method]
     target, maxiter = guard
+    rr = state[i_rr]
+    active = (rr.double() > target) & torch.isfinite(rr) \
+        & (state[i_k] < maxiter)
+    if i_brk is not None:
+        active = active & ~state[i_brk]
+    return active
+
+
+def loop_continue(method: str, state, guard) -> bool:
+    """Whether a pass steps again (``loop_active``, read on the host): the
+    plain version of the guard kernel of ``csrc/graph_loop.cu``."""
+    return bool(loop_active(method, state, guard))
+
+
+def loop_record(method: str, state) -> torch.Tensor:
+    """(||r||^2, k, breakdown) of a state in fp64, as the guard kernel
+    writes them for the host (breakdown 0 for CG and the stationary
+    iteration)."""
+    i_rr, i_k, i_brk = READS[method]
+    brk = torch.zeros((), dtype=torch.float64, device=state[i_rr].device) \
+        if i_brk is None else state[i_brk].double()
+    return torch.stack((state[i_rr].double(), state[i_k].double(), brk))
+
+
+def step_inplace(matvec, precond, method: str, _dot, rhat=None):
+    """step(state) -> None: one plain step of `method` on the state's
+    buffers (the body of the device loop mode's loop); BiCGStab's shadow
+    residual is `rhat`."""
+    if method == "bicgstab":
+        return lambda st: bicgstab_step_(matvec, precond, _dot, rhat, st)
+    step = {"cg": pcg_step_, "amg": stationary_step_}[method]
+    return lambda st: step(matvec, precond, _dot, st)
+
+
+def masked(step, method: str, guard):
+    """`step` predicated on the device by ``loop_active``: an active step
+    gives the plain step's bits; an inactive one leaves every state entry
+    bit for bit unchanged and k where it was."""
 
     def step_masked(state):
-        rr = state[i_rr]
-        active = (rr.double() > target) & torch.isfinite(rr) \
-            & (state[i_k] < maxiter)
-        if i_brk is not None:
-            active = active & ~state[i_brk]
+        active = loop_active(method, state, guard)
         new = step(state)
         return tuple(torch.where(active, n, o) for n, o in zip(new, state))
 

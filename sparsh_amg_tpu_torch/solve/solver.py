@@ -7,19 +7,30 @@ mixed-precision iterative refinement: each pass computes the residual in
 fp64 on the device, solves for a correction in fp32, and adds it to the
 fp64 solution.
 
-The Krylov loop runs in chunks of iterations, as in the JAX package
-(``KrylovParams.loop_mode`` and ``chunk``): the host reads ||r||^2, the
-count and BiCGStab's breakdown flag once per chunk and picks the next
-chunk's size from the contraction seen so far (``_pick_chunk``).  On the
-card every chunk is one CUDA graph replay (``solve/graphs.py``).
+The Krylov loop is placed as in the JAX package (``KrylovParams.loop_mode``
+and ``chunk``); on the card every piece of it is a CUDA graph
+(``solve/graphs.py``):
 
-* ``"host"``: plain chunks; a pass may run up to chunk-1 iterations past
-  convergence, as the JAX host mode does.
-* ``"device"``: the same ladder of chunks, each step predicated on the
-  device (``krylov.masked``): the counts are exact, those of the JAX
-  package's ``lax.while_loop``, and the bits are those of ``chunk=1``.
+* ``"device"``: each refinement pass is one device-resident loop, the JAX
+  package's ``lax.while_loop`` (``_inner_solve_dev``): the start (the
+  cast of b or the previous pass's residual, the Krylov init), the plain
+  step while ``krylov.loop_continue`` holds, and the finish (x += d in
+  fp64, the true residual and its norm), one graph launch with a WHILE
+  node and one host read per pass.  On the CPU the same pass runs
+  eagerly with the loop in Python.  The counts are exact.
+* ``"host"``: chunks of iterations; the host reads ||r||^2, the count and
+  BiCGStab's breakdown flag once per chunk and picks the next chunk's size
+  from the contraction seen so far (``_pick_chunk``).  The pass's start is
+  replayed back to back with its first chunk, sized with no read
+  (``_first_chunk``), and its finish right after the last, as the JAX
+  package's fused ``refine_start``/``kr_start`` and ``refine_finish``.  A
+  pass may run up to chunk-1 iterations past convergence, as the JAX host
+  mode does.
 * ``"auto"``: ``"device"`` when one launch and scalar read cost under
   1 ms (``utils.timing.resolve_loop_mode``), resolved at construction.
+
+Each pass is capped at the iterations left of the solve's budget (the JAX
+device mode gives every pass the whole ``maxiter``).
 """
 from __future__ import annotations
 
@@ -41,8 +52,9 @@ from ..setup.reorder import maybe_reorder
 from ..utils.logging import get_logger, iteration_log
 from .cycles import make_cycle
 from .device import DeviceHierarchy, _torch_dtype, to_device
-from .graphs import ChunkGraph
-from .krylov import READS, bicgstab_chunk, pcg_chunk, stationary_chunk
+from .graphs import ChunkGraph, PassGraph
+from .krylov import (READS, bicgstab_chunk, loop_record, pcg_chunk,
+                     stationary_chunk, step_inplace)
 
 _log = get_logger(__name__)
 
@@ -77,13 +89,28 @@ def chunk_sizes(main: int) -> tuple:
 
 
 class _Loop:
-    """The static buffers and chunk graphs of one Krylov method on one
-    solver.  Every graph reads and writes only these buffers: the state
-    tuple, the pass's right-hand side `b` (BiCGStab's shadow residual),
-    tol^2 and the guard (target ||r||^2 in fp64, the iteration budget),
-    and `prog`, the one vector the host reads per chunk: (||r||^2, k,
-    breakdown, ||r0||^2) in fp64.  Graphs are keyed by (masked, k) and
-    share one memory pool."""
+    """The static buffers and graphs of one Krylov method on one solver.
+    Every graph reads and writes only these buffers: the state tuple, the
+    solve's right-hand side and solution in fp64 (``b64``, ``x64``), the
+    pass's right-hand side ``b`` in fp32 (BiCGStab's shadow residual),
+    ``limits`` (tol^2 and the iteration budget, filled by the host before
+    a pass), the target ||r||^2 in fp64, and ``prog``, what the host
+    reads: (||r||^2, k, breakdown, ||r0||^2, true ||r||^2 after the pass)
+    in fp64.  The graphs, all in one memory pool:
+
+    * ``cast`` (pass 0's start): b = fp32(b64), x64 = 0;
+    * ``init``: the Krylov state from b, the target, prog[:4];
+    * ``step``: one plain step on the state's buffers, in place (the
+      body of the device mode's loop);
+    * ``finish``: x64 += x, r = b64 - A64 x64 in fp64, prog[4] = ||r||^2
+      and b = fp32(r), the next pass's right-hand side (so a later pass
+      starts with ``init`` alone, as the JAX package's ``refine_start``
+      starts from the residual of the previous pass's x);
+    * the host mode's chunks of k plain steps, each writing prog[:4]
+      (``chunk(k)``, captured at first use);
+    * the device mode's two pass graphs (``pass_graph``): cast and init,
+      or init alone, then the step while ``krylov.loop_continue`` holds,
+      then finish."""
 
     def __init__(self, solver, method: str):
         dev, n = solver.torch_device, solver.n_pad
@@ -95,38 +122,56 @@ class _Loop:
         self._mv = partial(spmv, solver._krylov_op)
         self._pc = partial(solver._cycle, solver.device.levels)
         self._dot = solver._dot
+        self._A64 = solver.A64
+        self.b64 = torch.zeros(n, dtype=torch.float64, device=dev)
+        self.x64 = torch.zeros(n, dtype=torch.float64, device=dev)
         self.b = torch.zeros(n, dtype=torch.float32, device=dev)
-        self.tol2 = torch.zeros((), dtype=torch.float64, device=dev)
+        self.limits = torch.zeros(2, dtype=torch.float64, device=dev)
+        self._limits_host = torch.zeros(2, dtype=torch.float64,
+                                        pin_memory=self.capture)
         self.guard = (torch.zeros((), dtype=torch.float64, device=dev),
-                      torch.zeros((), dtype=torch.int32, device=dev))
-        self.prog = torch.zeros(4, dtype=torch.float64, device=dev)
-        # one eager init makes the state buffers and launches every kernel
-        # of the init once (the kernel build and each first launch happen
-        # outside any capture)
-        init_fn, _ = _CHUNKS[method](self._mv, self._pc, 1, self._dot)
-        self.state = tuple(t.clone() for t in init_fn(self.b))
-        self.graphs = {}
-        self.init = ChunkGraph(self._init_fn, (*self.state, self.guard[0],
-                                               self.prog),
-                               self.capture, self.pool)
-        self._warmed = set()
+                      self.limits[1])
+        self.prog = torch.zeros(5, dtype=torch.float64, device=dev)
+        self._init_state, _ = _CHUNKS[method](self._mv, self._pc, 1,
+                                              self._dot)
+        self.state = tuple(t.clone() for t in self._init_state(self.b))
+        self._step = step_inplace(self._mv, self._pc, method, self._dot,
+                                  self.b)
+        parts = {
+            "cast": (self._cast_fn, (self.b, self.x64)),
+            "init": (self._init_fn, (*self.state, self.guard[0],
+                                     self.prog[:4])),
+            "step": (self._step_fn, ()),
+            "finish": (self._finish_fn, (self.x64, self.b, self.prog[4:])),
+        }
+        if self.capture:
+            # one eager run of each part first: the kernel build, each
+            # first launch and the BLAS handles happen outside any capture
+            # (the buffers hold nothing of a solve yet)
+            for fn, bufs in parts.values():
+                ChunkGraph(fn, bufs, False).run()
+        for name, (fn, bufs) in parts.items():
+            setattr(self, name, ChunkGraph(fn, bufs, self.capture, self.pool))
+        self.chunks = {}
+        self.passes = {}
 
-    def _progress(self, state, rr0):
-        i_rr, i_k, i_brk = READS[self.method]
-        brk = torch.zeros((), dtype=torch.float64, device=self.b.device) \
-            if i_brk is None else state[i_brk].double()
-        return torch.stack((state[i_rr].double(), state[i_k].double(), brk,
-                            rr0))
+    def _cast_fn(self, bufs):
+        return self.b64, torch.zeros_like(self.x64)
 
     def _init_fn(self, bufs):
-        init_fn, _ = _CHUNKS[self.method](self._mv, self._pc, 1, self._dot)
-        st = init_fn(self.b)
+        st = self._init_state(self.b)
         rr0 = st[READS[self.method][0]].double()
-        return (*st, self.tol2 * rr0, self._progress(st, rr0))
+        return (*st, self.limits[0] * rr0, self._progress(st, rr0))
 
-    def _chunk_fn(self, masked: bool, k: int):
-        _, chunk = _CHUNKS[self.method](self._mv, self._pc, k, self._dot,
-                                        self.guard if masked else None)
+    def _progress(self, state, rr0):
+        return torch.cat((loop_record(self.method, state), rr0.reshape(1)))
+
+    def _step_fn(self, bufs):
+        self._step(self.state)
+        return ()
+
+    def _steps_fn(self, k: int):
+        _, chunk = _CHUNKS[self.method](self._mv, self._pc, k, self._dot)
         if self.method == "bicgstab":
             chunk = partial(chunk, self.b)
 
@@ -135,21 +180,41 @@ class _Loop:
             return (*st, self._progress(st, bufs[-1][3]))
         return fn
 
-    def graph(self, masked: bool, k: int) -> ChunkGraph:
-        """The chunk of k (masked) steps, captured on first use; before the
-        first capture of a kind, one eager step launches its kernels."""
-        g = self.graphs.get((masked, k))
+    def _finish_fn(self, bufs):
+        x = self.x64 + self.state[0]
+        r = residual64(self._A64, self.b64, x)
+        return x, r, self._dot(r, r).reshape(1)
+
+    def set_limits(self, tol: float, budget: int) -> None:
+        """tol^2 and the budget of the next pass: one copy to the device."""
+        self._limits_host[0], self._limits_host[1] = tol * tol, budget
+        self.limits.copy_(self._limits_host, non_blocking=True)
+
+    def chunk(self, k: int) -> ChunkGraph:
+        """The host mode's chunk of k steps, captured and instantiated on
+        first use (warm() takes every size the scheduler can pick)."""
+        g = self.chunks.get(k)
         if g is None:
-            bufs = (*self.state, self.prog)
-            if self.capture and masked not in self._warmed:
-                ChunkGraph(self._chunk_fn(masked, 1), bufs, False).run()
-                self._warmed.add(masked)
-            g = self.graphs[(masked, k)] = ChunkGraph(
-                self._chunk_fn(masked, k), bufs, self.capture, self.pool)
+            g = self.chunks[k] = ChunkGraph(
+                self._steps_fn(k), (*self.state, self.prog[:4]),
+                self.capture, self.pool)
+            g.instantiate()
+        return g
+
+    def pass_graph(self, first: bool) -> PassGraph:
+        """The device mode's pass (pass 0's when `first`), built on first
+        use."""
+        g = self.passes.get(first)
+        if g is None:
+            heads = [self.cast, self.init] if first else [self.init]
+            g = self.passes[first] = PassGraph(
+                heads, self.step, [self.finish], self.method, self.state,
+                self.guard, self.prog, self.capture)
         return g
 
     def all_graphs(self) -> list:
-        return [self.init, *self.graphs.values()]
+        return [self.cast, self.init, self.step, self.finish,
+                *self.chunks.values()]
 
 
 @dataclasses.dataclass
@@ -163,8 +228,12 @@ class SolveResult:
     setup_time: float
     solve_time: float
     history: list              # per-pass (inner_iters, relres after pass)
-    masked_steps: int = 0      # device mode: steps replayed past the end
-                               # of a pass (predicated off, uncounted)
+    masked_steps: int = 0      # steps run past the end of a pass that did
+                               # not count (0 in both loop modes)
+    host_reads: int = 0        # reads of the device by the host: one per
+                               # pass graph (device mode; an eager pass
+                               # reads the guard after every step too),
+                               # one per chunk and per pass (host mode)
 
     @property
     def x(self) -> np.ndarray:
@@ -211,10 +280,11 @@ class AMGSolver:
     >>> solver = AMGSolver(A, params, krylov, device="cuda")
     >>> res = solver.solve(b)           # b float64, returns SolveResult
 
-    On the card each Krylov chunk is captured once as a CUDA graph and
-    replayed; the CPU runs the same chunks eagerly.  Shallow copies share
-    the graphs and their buffers; a copy with ``capture = False`` runs
-    its chunks eagerly on the card too (its own buffers).
+    On the card the loop's graphs are captured once and replayed (the
+    device mode's passes as one launch each); the CPU runs the same
+    pieces eagerly.  Shallow copies share the graphs and their buffers; a
+    copy with ``capture = False`` runs them eagerly on the card too (its
+    own buffers).
     """
 
     capture = True
@@ -291,29 +361,39 @@ class AMGSolver:
         return self._loops[key]
 
     def graph_seconds(self) -> tuple:
-        """(capture, instantiation) seconds of every chunk graph so far."""
+        """(capture, instantiation) seconds of every captured graph so
+        far (the pass graphs' assembly: ``pass_graph_seconds``)."""
         gs = [g for lp in self._loops.values() for g in lp.all_graphs()]
         return (sum(g.capture_s for g in gs),
                 sum(g.instantiate_s for g in gs))
 
+    def pass_graph_seconds(self) -> float:
+        """Seconds spent assembling, instantiating and uploading the device
+        mode's pass graphs so far."""
+        return sum(g.build_s for lp in self._loops.values()
+                   for g in lp.passes.values())
+
     def warm(self) -> None:
-        """Capture every chunk graph the configured loop mode can replay
-        (the init, the main chunk, the ladder 1, 2, 4 and the probe: the
-        JAX package's warm() compiles the same set), then one throwaway
-        solve of a ones right-hand side at tol 1e-1 and one fp64
-        refinement residual and its norm, so the kernel builds (nvcc, at
-        first launch), every capture and the allocator's first growth
-        happen before any timed solve.  Leaves no estimate behind."""
+        """Capture every graph the configured loop mode can replay (the
+        start, step and finish; the host mode's main chunk, the ladder 1,
+        2, 4 and the probe, the set the JAX package's warm() compiles; the
+        device mode's two pass graphs), then two throwaway passes (a
+        first and a later one) on a ones right-hand side at tol 1e-1, so
+        the kernel builds (nvcc, at first launch), every capture and
+        instantiation and the allocator's first growth happen before any
+        timed solve.  Leaves no estimate behind."""
         loop = self._loop()
-        masked = self.krylov.loop_mode == "device"
-        for k in chunk_sizes(self.krylov.chunk):
-            loop.graph(masked, k)
-        b64 = self.prepare_rhs(np.ones(self.n)).b
+        if self.krylov.loop_mode == "device":
+            for first in (True, False):
+                loop.pass_graph(first)
+        else:
+            for k in chunk_sizes(self.krylov.chunk):
+                loop.chunk(k)
         rho2 = self._rho2_est
-        x, _, _, _ = self._inner_solve(b64, 1e-1, self.krylov.maxiter)
+        loop.b64.copy_(self.prepare_rhs(np.ones(self.n)).b)
+        for first in (True, False):
+            self._pass(loop, first, 1e-1, self.krylov.maxiter)
         self._rho2_est = rho2
-        r = residual64(self.A64, b64, x.double())
-        self._dot(r, r).item()
 
     def _first_chunk(self, itol: float, first_pass: bool) -> int:
         """A pass's first chunk, chosen with no read of the device: on the
@@ -332,36 +412,41 @@ class AMGSolver:
             need = max(1, main // 4)
         return _pick_chunk(max(1, min(need, _TAILS[-1])), main)
 
-    def _inner_solve(self, b: torch.Tensor, tol: float, maxiter: int,
-                     first_pass: bool = True):
-        """fp32 AMG-preconditioned iteration on b (cast to fp32) from x = 0
-        until ||r|| <= tol ||b||, maxiter iterations, or a BiCGStab
-        breakdown, in chunks: the first sized by _first_chunk, each later
-        one from the contraction seen so far.  One host read per chunk.
-        Returns (x, iters, relres, steps); x is the loop's buffer,
-        overwritten by the next pass."""
-        kr = self.krylov
-        main = kr.chunk
-        masked = kr.loop_mode == "device"
-        loop = self._loop()
-        loop.b.copy_(b)
-        loop.tol2.fill_(tol * tol)
-        loop.guard[1].fill_(maxiter)
+    def _note_contraction(self, rr: float, iters: int, rr0: float) -> None:
+        """The cumulative geometric-mean contraction of a pass so far."""
+        if iters > 0 and 0.0 < rr < rr0:
+            self._rho2_est = float((rr / rr0) ** (1.0 / iters))
+
+    def _pass(self, loop: _Loop, first: bool, tol: float, maxiter: int):
+        """One refinement pass on the loop's buffers: the fp32 iteration
+        on b (pass 0: the solve's rhs, else the previous pass's residual)
+        from x = 0 until ||r|| <= tol ||b||, maxiter iterations or a
+        BiCGStab breakdown, then x64 += x and the true residual.  Returns
+        (iterations, true ||r||^2, steps run, host reads)."""
+        loop.set_limits(tol, maxiter)
+        if self.krylov.loop_mode == "device":
+            (rr, iters, _, rr0, rnsq), reads = loop.pass_graph(first).run()
+            iters = int(iters)
+            self._note_contraction(rr, iters, rr0)
+            return iters, rnsq, iters, reads
+        main = self.krylov.chunk
+        if first:
+            loop.cast.run()
         loop.init.run()
-        k = self._first_chunk(tol, first_pass)
-        steps = 0
+        k = self._first_chunk(tol, first)
+        steps = reads = 0
         t0 = time.perf_counter()
         while True:
-            loop.graph(masked, k).run()
+            loop.chunk(k).run()
             steps += k
-            rr, iters, broken, rr0 = loop.prog.tolist()
+            rr, iters, broken, rr0, _ = loop.prog.tolist()
+            reads += 1
             iters = int(iters)
-            if rr0 == 0.0:
-                return loop.state[0], 0, 0.0, steps
+            if rr0 == 0.0:             # a zero right-hand side: no step
+                iters = 0              # counts (the JAX loop runs none)
+                break
             target = (tol * tol) * rr0
-            # the cumulative geometric-mean contraction of this pass
-            if iters > 0 and 0.0 < rr < rr0:
-                self._rho2_est = float((rr / rr0) ** (1.0 / iters))
+            self._note_contraction(rr, iters, rr0)
             if _log.isEnabledFor(10):
                 _log.debug("%s", iteration_log(
                     iters, float(np.sqrt(max(rr, 0.0) / rr0)),
@@ -378,8 +463,8 @@ class AMGSolver:
                 k = min(_TAILS[-1], main)    # cold probe
             else:
                 k = main
-        return loop.state[0], iters, float(np.sqrt(max(rr, 0.0) / rr0)), \
-            steps
+        loop.finish.run()
+        return iters, loop.prog[4].item(), steps, reads + 1
 
     def _pass_tol(self, tol: float, relres: float) -> float:
         """Inner tolerance for the next refinement pass: aim 10x past the
@@ -434,49 +519,41 @@ class AMGSolver:
         if not isinstance(b, DeviceRhs):
             b = self.prepare_rhs(b)
         t0 = time.perf_counter()
-        b64, bnorm = b.b, b.bnorm
+        bnorm = b.bnorm
         if bnorm == 0.0:
             return SolveResult(np.zeros(self.n), True, 0.0, 0, 0,
                                self.setup_time, 0.0, [])
-        if not kr.refine:
-            x, iters, _, steps = self._inner_solve(b64, tol, maxiter)
-            x = x.clone()
-            r = residual64(self.A64, b64, x.double())
-            relres = float(np.sqrt(max(self._dot(r, r).item(), 0.0))) / bnorm
-            return SolveResult(self._fetch(x), relres <= tol, relres, iters,
-                               1, self.setup_time, time.perf_counter() - t0,
-                               [(iters, relres)], steps - iters)
-
-        x = torch.zeros_like(b64)
-        r = b64                       # residual of x = 0
+        loop = self._loop()
+        loop.b64.copy_(b.b)
         history = []
-        total_iters = passes = steps = 0
+        total_iters = passes = steps = reads = 0
         converged = False
         relres = 1.0
-        for _ in range(kr.max_refine):
+        # without refinement: one pass to tol itself
+        for _ in range(kr.max_refine if kr.refine else 1):
             budget = maxiter - total_iters
             if budget <= 0:
                 break
-            itol = self._pass_tol(tol, relres)
-            d, iters, _, k = self._inner_solve(r, itol, budget,
-                                               first_pass=passes == 0)
+            itol = self._pass_tol(tol, relres) if kr.refine else tol
+            iters, rnsq, k, r = self._pass(loop, passes == 0, itol, budget)
             steps += k
-            x += d
-            r = residual64(self.A64, b64, x)
-            rnsq = self._dot(r, r).item()
+            reads += r
             passes += 1
             total_iters += iters
             relres_prev = relres
             relres = float(np.sqrt(max(rnsq, 0.0))) / bnorm
-            self._note_pass_slack(relres_prev, relres, itol,
-                                  budget_limited=iters >= budget)
+            if kr.refine:
+                self._note_pass_slack(relres_prev, relres, itol,
+                                      budget_limited=iters >= budget)
             history.append((iters, relres))
             if relres <= tol:
                 converged = True
                 break
+        # the loop's buffers belong to the next solve: keep a copy
+        x = loop.x64.clone()
         return SolveResult(self._fetch(x), converged, relres, total_iters,
                            passes, self.setup_time, time.perf_counter() - t0,
-                           history, steps - total_iters)
+                           history, steps - total_iters, reads)
 
 
 def solve(A: sp.csr_matrix, b: np.ndarray, params: AMGParams | None = None,

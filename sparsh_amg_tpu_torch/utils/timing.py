@@ -150,7 +150,7 @@ _RTT_CACHE: dict = {}
 
 def measure_dispatch_rtt(device, reps: int = 5) -> float:
     """Median seconds of one tiny launch followed by a scalar read on
-    `device`: what the Krylov loop pays per chunk to read its progress.
+    `device`: what the Krylov loop pays per read of its progress.
     Cached per device for the life of the process."""
     device = torch.device(device)
     key = str(device)
@@ -171,8 +171,8 @@ def measure_dispatch_rtt(device, reps: int = 5) -> float:
 
 def resolve_loop_mode(mode: str, device, threshold_s: float = 1e-3) -> str:
     """loop_mode "auto" -> "device" when one launch and read on `device`
-    cost under ``threshold_s`` (the predicated chunks then run the exact
-    counts for a negligible read per chunk), else "host"; any other mode
+    cost under ``threshold_s`` (the passes then run the exact counts for
+    a negligible read per pass), else "host"; any other mode
     unchanged."""
     if mode != "auto":
         return mode

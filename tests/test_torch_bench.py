@@ -25,7 +25,8 @@ ADDED_KEYS = {"relres_host_fp64", "device_name", "power_limit_w",
               "setup_peak_bytes", "solve_peak_bytes",
               "solve_peak_reserved_bytes", "history", "launches",
               "bytes_per_nnz", "chunk", "loop_mode_counts", "masked_steps",
-              "capture_s", "instantiate_s", "reference", "checks", "ok"}
+              "host_reads", "loop_mode_host_reads", "capture_s",
+              "instantiate_s", "pass_graph_s", "reference", "checks", "ok"}
 DEVICE_KEYS = {"vs_baseline", "hbm_bw_GBs", "hbm_bw_spec_GBs",
                "speed_of_light_nnz_per_s", "vs_spec", "hbm_fraction",
                "hbm_fraction_spec", "device_name", "power_limit_w",
@@ -85,6 +86,14 @@ def test_bench_flagship_line(capsys):
     assert out["solve_s"] == out["loop_mode_ab_s"][out["loop_mode"]]
     assert out["chunk"] == 12 and out["dispatch_rtt_ms"] > 0
     assert out["capture_s"] == out["instantiate_s"] == 0.0   # CPU: eager
+    assert out["pass_graph_s"] == 0.0 and out["masked_steps"] == 0
+    # on the CPU the device mode's passes run eagerly: the guard is read
+    # after every step, prog once a pass
+    dev_iters, dev_passes = out["loop_mode_counts"]["device"]
+    assert out["loop_mode_host_reads"]["device"] == \
+        dev_iters + 2 * dev_passes
+    assert out["loop_mode_host_reads"]["host"] >= 2 * dev_passes
+    assert out["host_reads"] == out["loop_mode_host_reads"][out["loop_mode"]]
     assert out["metric"] == "amg_pcg_poisson3d_spmv_throughput"
     assert out["unit"] == "nnz/s" and out["value"] > 0
     assert out["reference"] is None          # no count reference at 16^3

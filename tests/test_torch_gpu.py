@@ -511,50 +511,137 @@ def _flagship_small(cuda, **kw):
 
 
 def test_captured_device_mode_matches_eager(cuda):
-    """The device mode replayed from CUDA graphs against the same solve
-    launched eagerly with chunk 1, both from the same estimates: equal
-    counts and x with the same bits."""
+    """The device mode as one WHILE-node graph launch per pass against the
+    same passes run eagerly (the loop in Python, the guard kernel asked
+    before every step), both from the same estimates: equal counts and
+    history, x with the same bits, one host read per pass and no masked
+    step."""
     import copy
-    import dataclasses
     A, b, s, rhs = _flagship_small(cuda)
     s.warm()
     s.solve(rhs, tol=1e-2)
     eager = copy.copy(s)
     eager.capture = False
-    eager.krylov = dataclasses.replace(s.krylov, chunk=1)
     got, want = copy.copy(s).solve(rhs), eager.solve(rhs)
-    assert all(g.graph is not None for g in s._loop().all_graphs())
+    loop = s._loop()
+    assert all(g.graph is not None for g in loop.all_graphs())
+    assert len(loop.passes) == 2 and all(
+        p.exec is not None for p in loop.passes.values())
+    assert not loop.chunks
     assert (got.iterations, got.refine_passes, got.history) == \
         (want.iterations, want.refine_passes, want.history)
+    assert abs(got.relres - want.relres) <= 1e-12 * want.relres
     np.testing.assert_array_equal(got.x, want.x)
+    assert got.masked_steps == 0 and got.host_reads == got.refine_passes
+    assert want.host_reads == want.iterations + 2 * want.refine_passes
     assert np.linalg.norm(b - A @ got.x) / np.linalg.norm(b) <= 1e-8
 
 
-def test_replay_launches_match_the_profiler(cuda):
-    """counted() over one replay of the main chunk reports, by wrapper,
-    the kernels the profiler sees in that replay."""
+def _profiled_wrappers(fn):
+    """(counted() launches of fn, {wrapper: kernels the profiler saw})."""
     import re
     from torch.profiler import ProfilerActivity, profile
     from sparsh_amg_tpu_torch.ops import counted
     from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
-    _, _, s, rhs = _flagship_small(cuda)
-    s.warm()
-    g = s._loop().graph(True, s.krylov.chunk)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, counts = counted(g.run)
+        out, counts = counted(fn)
         torch.cuda.synchronize()
     seen = {}
     for e in prof.events():
         m = re.search(r"::dia_tile<[^,]+, (\d+),", e.name)
         name = WRAPPERS[int(m.group(1))].__name__ if m else next(
-            (w for w in ("block_ell_spmv", "ell_spmv")
-             if f"::{w}" in e.name), None)
-        if name:
+            (w for w in ("block_ell_spmv", "ell_spmv", "loop_guard")
+             if f"::{w}" in e.name or e.name.startswith(w)), None)
+        if name and getattr(e.device_type, "name", "") == "CUDA":
             seen[name] = seen.get(name, 0) + 1
-    assert counts["dia_cheb_step"] > 0 and counts["ell_spmv"] > 0
-    assert {k: v for k, v in counts.items() if v} == seen
+    return out, {k: v for k, v in counts.items() if v}, seen
+
+
+def test_replay_launches_match_the_profiler(cuda):
+    """counted() over one pass-graph launch adds the start's and finish's
+    launches, k times the step's and k + 1 guard launches, k read from the
+    device; the profiler sees every one of those kernels (it reports a
+    WHILE body's kernels once per launch, not once per iteration).  Over
+    one replay of the step graph and of a host-mode chunk, counted()
+    reports by wrapper the kernels the profiler sees."""
+    import dataclasses
+    _, _, s, rhs = _flagship_small(cuda)
+    s.warm()
+    loop = s._loop()
+    loop.b64.copy_(rhs.b)
+    loop.set_limits(1e-3, 50)
+    (prog, reads), counts, seen = _profiled_wrappers(
+        loop.pass_graph(True).run)
+    k = int(prog[1])
+    assert reads == 1 and k > 1 and counts["dia_cheb_step"] > 0 and counts["ell_spmv"] > 0
+    want = {}
+    for g, times in ((loop.cast, 1), (loop.init, 1), (loop.step, k),
+                     (loop.finish, 1)):
+        for w, n in g.per_replay.items():
+            want[w.__name__] = want.get(w.__name__, 0) + n * times
+    want["loop_guard"] = k + 1
+    assert counts == want
+    assert set(seen) == set(counts) and all(
+        1 <= seen[w] <= counts[w] for w in counts), (counts, seen)
+    _, counts, seen = _profiled_wrappers(loop.step.run)
+    assert counts == seen
+    assert {w.__name__: n for w, n in loop.step.per_replay.items()} == seen
+    s.krylov = dataclasses.replace(s.krylov, loop_mode="host", chunk=12)
+    g = loop.chunk(12)
+    g.run()
+    _, counts, seen = _profiled_wrappers(g.run)
+    assert counts == seen
     assert {w.__name__: n for w, n in g.per_replay.items()} == seen
+
+
+@pytest.mark.parametrize("method,case", [
+    (m, c) for m in ("cg", "bicgstab", "amg")
+    for c in ("active", "met", "zero_rhs", "budget", "inf", "nan",
+              "breakdown") if c != "breakdown" or m == "bicgstab"])
+def test_loop_guard_matches_loop_continue(cuda, method, case):
+    """The guard kernel launched on its own against its plain version on
+    the same state: the same decision and the same record in prog[:3]."""
+    from sparsh_amg_tpu_torch.solve import krylov as tk
+    from sparsh_amg_tpu_torch.solve.graphs import loop_guard
+    n = {"cg": 7, "bicgstab": 10, "amg": 4}[method]
+    i_rr, i_k, i_brk = tk.READS[method]
+    state = [torch.zeros(8, device=cuda) for _ in range(n)]
+    state[i_rr] = torch.tensor(
+        {"inf": float("inf"), "nan": float("nan"), "zero_rhs": 0.0}.get(
+            case, 2.5), device=cuda)
+    state[i_k] = torch.tensor(50 if case == "budget" else 3,
+                              dtype=torch.int32, device=cuda)
+    if i_brk is not None:
+        state[i_brk] = torch.tensor(case == "breakdown", device=cuda)
+    target = torch.tensor(3.0 if case == "met" else 0.0,
+                          dtype=torch.float64, device=cuda)
+    guard = (target, torch.tensor(50.0, dtype=torch.float64, device=cuda))
+    prog = torch.zeros(5, dtype=torch.float64, device=cuda)
+    before = loop_guard.launches
+    go = bool(loop_guard(method, state, guard, prog))
+    assert loop_guard.launches == before + 1
+    want = tk.loop_continue(method, state, guard)
+    assert go == want == (case == "active")
+    np.testing.assert_array_equal(
+        prog[:3].cpu().numpy(), tk.loop_record(method, state).cpu().numpy())
+
+
+def test_pass_of_zero_iterations(cuda):
+    """A pass whose right-hand side already meets its target runs no step
+    in the WHILE node, as lax.while_loop runs none: k = 0, x unchanged,
+    one guard launch and the start's and finish's kernels only."""
+    _, _, s, rhs = _flagship_small(cuda)
+    s.warm()
+    loop = s._loop()
+    loop.b64.copy_(rhs.b)
+    loop.set_limits(2.0, 50)         # target 4 ||r0||^2 > ||r0||^2
+    (prog, reads), counts, _ = _profiled_wrappers(
+        loop.pass_graph(True).run)
+    assert reads == 1 and prog[1] == 0.0 and prog[3] > 0.0
+    assert counts["loop_guard"] == 1
+    assert torch.count_nonzero(loop.x64).item() == 0
+    np.testing.assert_allclose(prog[4], prog[3], rtol=1e-5)
 
 
 def test_copied_solver_replays_the_same_graphs(cuda):
@@ -565,13 +652,13 @@ def test_copied_solver_replays_the_same_graphs(cuda):
     A, b, s, rhs = _flagship_small(cuda, loop_mode="host", chunk=12)
     s.warm()
     first = copy.copy(s).solve(rhs)
-    graphs = {k: list(lp.graphs) for k, lp in s._loops.items()}
+    graphs = {k: list(lp.chunks) for k, lp in s._loops.items()}
     other = copy.copy(s)
     b2 = np.random.default_rng(1).standard_normal(A.shape[0])
     r2 = other.solve(b2)
     again = copy.copy(s).solve(rhs)
     assert other._loops is s._loops
-    assert {k: list(lp.graphs) for k, lp in s._loops.items()} == graphs
+    assert {k: list(lp.chunks) for k, lp in s._loops.items()} == graphs
     assert r2.converged and np.linalg.norm(b2 - A @ r2.x) \
         <= 1e-8 * np.linalg.norm(b2)
     assert (again.iterations, again.history) == \

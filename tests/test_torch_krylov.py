@@ -121,21 +121,26 @@ def test_stationary_steps_match_jax():
 
 def test_solver_stops_on_breakdown(monkeypatch):
     """The solver's loop ends a BiCGStab pass at the first step that
-    reports a breakdown (device loop mode: the predicated steps after it
-    count nothing), read in the same sync as ||r||^2."""
+    reports a breakdown (device loop mode: the loop condition sees the
+    flag and no step runs after it), read in the pass's one sync with
+    ||r||^2."""
     from sparsh_amg_tpu.models.poisson import poisson2d
     from sparsh_amg_tpu_torch import AMGSolver
     from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
-    real = tk.bicgstab_step
+    real = tk.bicgstab_step_
 
     def broken(*args):
-        st = real(*args)
-        return (*st[:9], torch.ones((), dtype=torch.bool))
-    monkeypatch.setattr(tk, "bicgstab_step", broken)
+        real(*args)
+        args[-1][9].fill_(True)
+    monkeypatch.setattr(tk, "bicgstab_step_", broken)
     s = AMGSolver(poisson2d(32), AMGParams(coarse_size=64, dense_size=256),
                   KrylovParams(method="bicgstab", refine=False,
                                loop_mode="device"), device="cpu")
-    b = torch.zeros(s.n_pad)
+    b = torch.zeros(s.n_pad, dtype=torch.float64)
     b[: s.n] = 1.0
-    _, iters, relres, steps = s._inner_solve(b, 1e-8, 50)
-    assert iters == 1 and 0.0 < relres < 1.0 and steps >= iters
+    loop = s._loop()
+    loop.b64.copy_(b)
+    iters, rnsq, steps, reads = s._pass(loop, True, 1e-8, 50)
+    rr, k, brk, rr0, _ = loop.prog.tolist()
+    assert iters == k == 1 and brk == 1.0 and 0.0 < rr / rr0 < 1.0
+    assert steps == iters and reads == iters + 2 and rnsq > 0.0

@@ -139,6 +139,25 @@ def test_no_port_module_imports_jax():
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
+def test_kernel_sources_are_the_ports_own():
+    """Every CUDA source the build compiles lies in the port's csrc/ (the
+    pass graph's graph_loop.cu with the others), includes only CUDA's and
+    its own headers, and every C entry the wrappers call is registered
+    with its argument types."""
+    import re
+    from sparsh_amg_tpu_torch import _build
+    names = {pathlib.Path(f).name for f in _build.sources()}
+    assert {"dia_spmv.cu", "ell_spmv.cu", "block_ell_spmv.cu",
+            "graph_loop.cu"} <= names
+    local = {pathlib.Path(f).name for f in _build.headers()}
+    for f in _build.sources() + _build.headers():
+        for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]',
+                              pathlib.Path(f).read_text()):
+            assert inc in local or inc.startswith(("cuda", "c")), (f, inc)
+    assert {"loop_guard_launch", "pass_graph_create", "pass_graph_launch",
+            "pass_graph_destroy"} <= set(_build._ENTRIES)
+
+
 @pytest.mark.parametrize("name", ["AMGParams", "KrylovParams"])
 def test_port_params_match_jax_params(name):
     """The port's copy of params.py has the JAX package's fields, defaults

@@ -173,7 +173,8 @@ def _solves(group: str) -> dict:
             "relres_host_fp64": float(np.linalg.norm(b - A @ res.x)
                                       / np.linalg.norm(b)),
             "levels": [type(l).__name__ for l in solver.dist.levels],
-            "ops": [type(l.A).__name__ for l in solver.dist.levels]}
+            "ops": [type(l.A).__name__ for l in solver.dist.levels],
+            "capture": solver.capture}
     return out
 
 
