@@ -78,12 +78,20 @@ Phases (any failure raises, and the script exits non-zero):
      graft_entry_torch.py on 4 ranks sharing the card through gloo
      (poisson3d(64), the global setup and then the process-local blocked
      pipeline, each 12 +-1 iterations); the process-local solve of
-     parallel/multihost.py on 4 gloo ranks at poisson3d(96) (12 / 2 +-1,
-     relres <= 1e-8, the row blocks tiling the domain, no rank holding
-     the global fine matrix); NCCL with more ranks than cards refused;
-     and the DIA interior and the ELL kernels on rank blocks of that 96^3
-     hierarchy against their plain versions, timed.  The ranks' launch
-     counts over their solves join the totals.
+     parallel/multihost.py on 4 gloo ranks at poisson3d(96), timed after
+     the worker's warm() (12 / 2 +-1, relres <= 1e-8, the row blocks
+     tiling the domain, no rank holding the global fine matrix); NCCL with more ranks than cards refused;
+     the DIA interior and the ELL kernels on rank blocks of that 96^3
+     hierarchy against their plain versions, timed; and (8f, with two
+     cards or more) the process-local solve on two NCCL ranks, one card
+     each, in the device and the host loop mode, its loop captured with
+     the halos and all-reduces inside the graphs: counts 12 / 2 (+-1),
+     relres <= 1e-8, one host read per pass in the device mode (its pass
+     graphs built), the eager solve's reads in the host mode, no masked
+     step, x with the same bits as the same solve run eagerly on each
+     rank, no event node in the captured step.  With one card 8f prints
+     that it did not run.  The ranks' launch counts over their solves
+     join the totals.
 The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
@@ -1075,6 +1083,60 @@ def bench_phase(gpu_name):
 # phase 8: the 4-rank runs (ranks sharing the card through gloo)
 DIST_RANKS = 4
 DIST_M = 96                 # launch_processes: poisson3d(96), blocked setup
+NCCL_RANKS = 2              # phase 8f: NCCL ranks, one card each
+
+
+def nccl_phase():
+    """Phase 8f: the process-local solve on NCCL_RANKS NCCL ranks, one
+    card each, in both loop modes from captured graphs, held against the
+    same solve run eagerly.  Returns the ranks' launch counts (none with
+    fewer cards than ranks)."""
+    import torch
+    from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
+    cards = torch.cuda.device_count()
+    if cards < NCCL_RANKS:
+        print(f"phase 8f did not run: several NCCL ranks need one card "
+              f"each, and this machine has {cards}", flush=True)
+        return []
+    paths = []
+    for mode in ("device", "host"):
+        t0 = time.perf_counter()
+        res = launch_processes(NCCL_RANKS, "poisson3d", DIST_M,
+                               setup="blocked", device="cuda",
+                               backend="nccl", loop_mode=mode,
+                               compare_eager=True, timeout=600)
+        for r in res:
+            print(json.dumps(r), flush=True)
+            assert r["backend"] == "nccl" and r["capture"], r
+            assert r["converged"] and r["true_relres"] <= 1e-8, r
+            assert abs(r["iterations"] - 12) <= 1 and r["passes"] == 2, r
+            assert r["same_bits"], r
+            assert (r["eager"]["iterations"], r["eager"]["passes"]) == \
+                (r["iterations"], r["passes"]), r
+            assert r["masked_steps"] == 0, r
+            kinds = r["step_node_kinds"]
+            assert kinds["kernel"] > 0 and not {"wait_event",
+                                                "event_record"} & set(kinds), r
+            assert r["launches"]["dia_spmv"] > 0 and \
+                r["launches"]["ell_spmv"] > 0, r
+            if mode == "device":
+                assert r["host_reads"] == r["passes"], r
+                assert r["pass_graph_s"] > 0, r
+                assert len(r["pass_ms"]) == r["passes"], r
+                assert r["launches"]["loop_guard"] > 0, r
+            else:
+                assert r["host_reads"] == r["eager"]["host_reads"], r
+            paths.append(r["launches"])
+        assert len({(r["iterations"], r["passes"]) for r in res}) == 1, res
+        print(f"phase_s 8f {time.perf_counter() - t0:.1f} launch_processes "
+              f"ranks={NCCL_RANKS} backend=nccl {mode} poisson3d({DIST_M}) "
+              f"iters={res[0]['iterations']} passes={res[0]['passes']} "
+              f"relres={res[0]['true_relres']:.4e} same_bits=True "
+              f"solve_s={max(r['solve_s'] for r in res):.4f} "
+              f"eager_solve_s={max(r['eager']['solve_s'] for r in res):.4f}"
+              + (f" pass_share={min(r['pass_share'] for r in res):.3f}"
+                 if mode == "device" else ""), flush=True)
+    return paths
 
 
 def dist_shard_cases(rng, results, dev):
@@ -1206,6 +1268,9 @@ def dist_phase(gpu_name, rng, results, dev):
     t0 = time.perf_counter()
     dist_shard_cases(rng, results, dev)
     print(f"phase_s 8e {time.perf_counter() - t0:.1f}", flush=True)
+
+    # (f) NCCL ranks, one card each, capturing their loop
+    paths.extend(nccl_phase())
     return paths
 
 

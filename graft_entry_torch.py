@@ -99,7 +99,7 @@ def _rank_multichip(m: int) -> None:
     print(json.dumps(out), flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    dist.destroy_process_group()
+    multihost.destroy_process_group()
 
 
 def dryrun_multichip(n: int = 4, device: str = "cuda",

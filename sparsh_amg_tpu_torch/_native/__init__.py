@@ -69,13 +69,11 @@ def get_lib():
             return None
         lib = ctypes.CDLL(so)
 
-        lib.soc_classical.restype = None
-        lib.soc_classical.argtypes = [
+        lib.soc_symmetric.restype = None
+        lib.soc_symmetric.argtypes = [
             _i64, _ptr(np.int64), _ptr(np.int32), _ptr(np.float64), _f64,
             _ptr(np.uint8),
         ]
-        lib.soc_symmetric.restype = None
-        lib.soc_symmetric.argtypes = lib.soc_classical.argtypes
         lib.soc_classical_rows.restype = None
         lib.soc_classical_rows.argtypes = [
             _i64, _i64, _ptr(np.int64), _ptr(np.int32), _ptr(np.float64),
@@ -189,8 +187,6 @@ def get_lib():
             _ptr(np.float64), _ptr(np.int64), _ptr(np.int32),
             _ptr(np.float64),
         ]
-        lib.fill_f32.restype = None
-        lib.fill_f32.argtypes = [_i64, ctypes.c_float, _ptr(np.float32)]
         lib.ell_fill_f32.restype = None
         lib.ell_fill_f32.argtypes = [
             _i64, _i64, _i64, _ptr(np.int64), _ptr(np.int32),
@@ -244,36 +240,11 @@ def get_lib():
             _i64, _i64, _ptr(np.int64), _ptr(np.int32),
             _ptr(np.int64), _ptr(np.int32), _ptr(np.int64),
         ]
-        lib.gell_windows.restype = _i64
-        lib.gell_windows.argtypes = [
-            _i64, _i64, _i64, _i64, _ptr(np.int64), _ptr(np.int32), _i64,
-        ]
-        lib.gell_fill.restype = None
-        lib.gell_fill.argtypes = [
-            _i64, _i64, _i64, _i64, _i64, _ptr(np.int64), _ptr(np.int32),
-            _ptr(np.float64), _ptr(np.int32), _ptr(np.int32),
-            _ptr(np.int32), _ptr(np.float32),
-        ]
-        lib.gell_fill_bf16.restype = None
-        lib.gell_fill_bf16.argtypes = [
-            _i64, _i64, _i64, _i64, _i64, _ptr(np.int64), _ptr(np.int32),
-            _ptr(np.float64), _ptr(np.int32), _ptr(np.int32),
-            _ptr(np.int32), _ptr(np.uint16),
-        ]
         lib.spgemm_numeric.restype = None
         lib.spgemm_numeric.argtypes = [
             _i64, _i64, _ptr(np.int64), _ptr(np.int32), _ptr(np.float64),
             _ptr(np.int64), _ptr(np.int32), _ptr(np.float64),
             _ptr(np.int64), _ptr(np.int32), _ptr(np.float64),
-        ]
-        lib.segment_rows_count.restype = None
-        lib.segment_rows_count.argtypes = [
-            _i64, _ptr(np.int64), _ptr(np.int32), _i64, _ptr(np.int64),
-        ]
-        lib.segment_rows_fill.restype = None
-        lib.segment_rows_fill.argtypes = [
-            _i64, _ptr(np.int64), _ptr(np.int32), _i64, _ptr(np.int64),
-            _ptr(np.int64), _ptr(np.int32),
         ]
         lib.ext_col_map_ecol.restype = None
         lib.ext_col_map_ecol.argtypes = [

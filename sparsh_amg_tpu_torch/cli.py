@@ -232,8 +232,9 @@ def run(argv=None) -> dict:
     }
     if args.dist:
         import torch.distributed as dist
+        from .parallel.multihost import destroy_process_group
         out.update(dist_ranks=args.dist, dist_backend=dist.get_backend())
-        dist.destroy_process_group()
+        destroy_process_group()
     if not rank0:
         return out
     if args.json:

@@ -39,6 +39,12 @@
 // relocatable device code.  torch.profiler reports a body's kernels once
 // per launch of the pass graph, not once per iteration.
 //
+// On several NCCL ranks the step holds NCCL's collectives as kernel nodes
+// (p3d(48), 2 ranks on two H100s: 149 kernel and 20 memcpy nodes) when
+// NCCL_GRAPH_MIXING_SUPPORT=0; with NCCL's default each captured
+// collective also brings an event wait node and event record nodes, and
+// instantiation refuses the body (cudaGraphNodeTypeWaitEvent).
+//
 // The step updates the Krylov state in place (solve/krylov.py::
 // step_inplace): a functional step's copy of each vector back into the
 // state per iteration cost the flagship 0.097 ms an iteration; in place,

@@ -9,7 +9,9 @@ through the gloo backend.
 
 * ``init_process_group`` joins the group from ``MASTER_ADDR``,
   ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` (``tcp://`` rendezvous) and
-  returns this rank's device.
+  returns this rank's device; ``destroy_process_group`` (also run at
+  exit) releases the CUDA graphs of this process's distributed solvers
+  before it destroys the group.
 * ``spawn_ranks`` starts N rank processes of a command with those
   variables set, waits for all of them, and stops the others when one
   fails; ``launch_processes`` runs the distributed solve below in them
@@ -18,7 +20,9 @@ through the gloo backend.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
+import copy
 import json
 import os
 import socket
@@ -74,11 +78,45 @@ def init_process_group(backend: str | None = None, device=None,
         device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
     check_backend(backend, world_size, device)
+    if backend == "nccl":
+        # NCCL's support for mixing captured and uncaptured collectives
+        # puts an event wait node at the head of every captured collective
+        # and event record nodes after it; a CUDA graph's WHILE body holds
+        # neither, so the device mode's pass graph would not instantiate
+        # (the host mode's graphs would; the placement is chosen after the
+        # communicator exists, so the whole process goes without).
+        # Without it, a captured and an uncaptured collective on one
+        # communicator must not be in flight together, in either order.
+        # An uncaptured collective before a launch: the launch's stream
+        # waits for it.  A launch before an uncaptured collective: the
+        # stream does not help; the host reads every launch of the loop
+        # back before it goes on, and DistAMGSolver's own uncaptured
+        # collectives raise where it has not (``_uncaptured``).  Read when
+        # the communicator is created, after this.
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     addr = os.environ.get("MASTER_ADDR", "localhost")
     port = os.environ.get("MASTER_PORT") or str(free_port())
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
                             rank=rank, world_size=world_size)
+    atexit.unregister(destroy_process_group)     # once a process
+    atexit.register(destroy_process_group)
     return device
+
+
+def destroy_process_group() -> None:
+    """Release the CUDA graphs of every distributed solver of this
+    process (``DistAMGSolver.live``), then destroy the default process
+    group (if it still exists).  A graph that captured NCCL collectives
+    holds the communicator until the graph is destroyed, and the group's
+    teardown waits for it: a rank whose solver still held its graphs when
+    the group was destroyed never exited.  ``init_process_group`` also
+    runs this at exit, so a rank that raises exits with its error."""
+    import torch.distributed as dist
+    from .solver import DistAMGSolver
+    for s in list(DistAMGSolver.live):
+        s.release_graphs()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def free_port() -> int:
@@ -194,21 +232,32 @@ def launch_processes(num_processes: int, problem: str = "poisson3d",
                      m: int = 24, setup: str = "blocked", device="cuda",
                      backend: str | None = None, krylov_method: str = "cg",
                      row_align: int | None = None, timeout: float = 900.0,
-                     threads: int | None = None) -> list:
+                     threads: int | None = None, loop_mode: str = "host",
+                     compare_eager: bool = False) -> list:
     """Run the distributed solve of ``_worker_main`` on `num_processes`
     ranks and return their result dicts (the JAX launcher's keys, plus
-    the rank's backend, device, solve time and kernel launches).
+    the rank's backend, device, times, kernel launches and what its loop
+    did: whether it captured, host reads, masked steps, the captured
+    step's node kinds, the pass graphs' device ms and their share of the
+    solve's wall).
 
     ``setup="blocked"`` is the process-local path: each rank assembles
     only its row block, coarsens through the blocked setup and returns
     its own rows.  ``setup="global"`` builds the global matrix and
-    hierarchy in every rank."""
+    hierarchy in every rank.  The Krylov loop is placed by `loop_mode`
+    (``KrylovParams``'s chunk); the solver is warmed
+    (``AMGSolver.warm``) before the timed solve.  With `compare_eager`
+    each rank also solves on a copy that runs the loop eagerly, from the
+    same state, and reports its counts, time and whether its x has the
+    same bits (``"eager"``, ``"same_bits"``)."""
     backend = backend or default_backend(device)
     cmd = ["-m", "sparsh_amg_tpu_torch.parallel.multihost", "--worker",
            "--m", str(m), "--setup", setup, "--problem", problem,
-           "--krylov", krylov_method]
+           "--krylov", krylov_method, "--loop-mode", loop_mode]
     if row_align is not None:
         cmd += ["--row-align", str(row_align)]
+    if compare_eager:
+        cmd.append("--compare-eager")
     outs = spawn_ranks(num_processes, cmd, backend=backend, device=device,
                        timeout=timeout, threads=threads)
     return [last_json(o) for o in outs]
@@ -269,6 +318,9 @@ def _worker_main(argv=None) -> None:
                     default="poisson3d")
     ap.add_argument("--row-align", type=int, default=None)
     ap.add_argument("--krylov", default="cg")
+    ap.add_argument("--loop-mode", default="host",
+                    choices=("host", "device"))
+    ap.add_argument("--compare-eager", action="store_true")
     args = ap.parse_args(argv)
 
     pin_threads()
@@ -281,10 +333,21 @@ def _worker_main(argv=None) -> None:
         args.problem, args.m, args.row_align)
     krylov = KrylovParams(method=args.krylov, tol=1e-8,
                           maxiter=60 if args.problem == "poisson3d"
-                          else 200)
+                          else 200, loop_mode=args.loop_mode)
     b = np.random.default_rng(0).standard_normal(n_glob)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
+
+    def ready(solver):
+        """Warm the solver; its eager twin (from the same state) or None."""
+        t = time.perf_counter()
+        solver.warm()
+        sync()
+        eager = None
+        if args.compare_eager:
+            eager = copy.copy(solver)
+            eager.capture = False
+        return eager, time.perf_counter() - t
 
     if args.setup == "blocked":
         solver = DistAMGSolver.from_blocked(
@@ -293,6 +356,7 @@ def _worker_main(argv=None) -> None:
         r0, r1 = solver.row_range
         b_loc = np.ascontiguousarray(b[r0:r1])
         del b                       # steady state holds only the block
+        eager, warm_s = ready(solver)
         rhs = solver.prepare_rhs(b_loc)
         sync()
         res, launches = counted(lambda: solver.solve(rhs))
@@ -319,6 +383,7 @@ def _worker_main(argv=None) -> None:
             A, ns = poisson3d(args.m), None
         solver = DistAMGSolver(A, params=params, krylov=krylov,
                                nullspace=ns, device=device)
+        eager, warm_s = ready(solver)
         rhs = solver.prepare_rhs(b)
         sync()
         res, launches = counted(lambda: solver.solve(rhs))
@@ -344,15 +409,31 @@ def _worker_main(argv=None) -> None:
         "blocked_levels_nnz": blk_nnz, "tail_nnz": tail_nnz,
         "holds_global_fine": holds_global_fine,
         "setup_s": float(solver.setup_time), "solve_s": res.solve_time,
+        "warm_s": warm_s, "capture_s": solver.graph_seconds()[0],
+        "pass_graph_s": solver.pass_graph_seconds(),
+        "pass_ms": res.pass_ms,
+        "pass_share": sum(res.pass_ms) / 1e3 / res.solve_time,
         "levels": [type(l.A).__name__ for l in solver.dist.levels],
-        "launches": launches,
+        "launches": launches, "loop_mode": solver.krylov.loop_mode,
+        "capture": solver._loop().capture, "host_reads": res.host_reads,
+        "masked_steps": res.masked_steps,
+        "step_node_kinds": (solver._loop().step.node_kinds()
+                            if solver._loop().capture else None),
         "maxrss_mb": resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss / 1024.0,
         "x_norm": float(np.linalg.norm(x_loc)),
         "x_head": x_loc[:8].tolist(),
     }
+    if eager is not None:
+        want = eager.solve(rhs)
+        out["eager"] = {"iterations": want.iterations,
+                        "passes": want.refine_passes,
+                        "host_reads": want.host_reads,
+                        "solve_s": want.solve_time}
+        out["same_bits"] = bool(np.array_equal(
+            np.asarray(want.x, dtype=np.float64), x_loc))
     print(json.dumps(out), flush=True)
-    dist.destroy_process_group()
+    destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -10,11 +10,12 @@ serial cycle, smoothers and Krylov steps apply unchanged, since the
 distributed operators have the serial ones' ``spmv``, the coarse level
 its ``coarse_solve``, and the dots are ``pdot`` (each rank's fp64
 partial, one all-reduce).  The all-reduced ||r||^2 gives every rank the
-same control flow, on the device as on the host.  A single rank issues
-no collective, and captures the loop's graphs as the serial solver does
-(the JAX package runs the device mode as one loop over the mesh,
-``sparsh_amg_tpu/parallel/solver.py:441-443``); several ranks run them
-eagerly (see ``_begin``).
+same control flow, on the device as on the host.  On the card the
+loop's graphs are captured as the serial solver's are, with the halos
+and all-reduces inside them, as the JAX package runs the whole solve as
+one program over the mesh (``sparsh_amg_tpu/parallel/solver.py:438-478``):
+one rank (no collective) or NCCL ranks capture; gloo ranks run the loop
+eagerly (``loop_capture``).
 
 Three constructors, as in the JAX package:
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from functools import partial
 
 import numpy as np
@@ -57,6 +59,17 @@ def rank_group(group=None) -> RankGroup:
     return RankGroup(dist.get_rank(group), dist.get_world_size(group), group)
 
 
+def loop_capture(backend: str | None, nranks: int) -> bool:
+    """Whether a solver of `nranks` ranks over `backend` captures its
+    Krylov loop's graphs on the card (the CPU runs the same pieces
+    eagerly).  One rank issues no collective.  NCCL ranks capture the
+    halos, all-reduces and all-gathers with the kernels: each is a kernel
+    on the rank's own card.  gloo stages every collective through pinned
+    host buffers and the host's own transport, which no CUDA graph can
+    hold, so gloo ranks run the loop eagerly."""
+    return nranks == 1 or backend == "nccl"
+
+
 def check_backend(backend: str, nranks: int, device) -> None:
     """NCCL moves device tensors between distinct cards: it needs CUDA and
     one card per rank.  Raise otherwise, naming the backend that shares
@@ -80,7 +93,23 @@ class DistAMGSolver(AMGSolver):
 
     >>> solver = DistAMGSolver(A, device=device)   # host CSR, float64
     >>> res = solver.solve(b)                      # res.x: the full x
+    >>> multihost.destroy_process_group()
+
+    Graphs that captured NCCL collectives hold the communicator until
+    they are destroyed, and the group's teardown waits for them: every
+    solver of the process is in ``DistAMGSolver.live``, whose graphs
+    ``multihost.destroy_process_group`` (also run at exit) releases
+    (``release_graphs``) before it destroys the group; destroy the group
+    through it, not through ``torch.distributed`` directly.  The device
+    mode's pass graphs need ``NCCL_GRAPH_MIXING_SUPPORT=0`` in the
+    environment when the communicator is created
+    (``multihost.init_process_group`` sets it), and with it no uncaptured
+    collective may follow a graph launch that the host has not read
+    back: the solver's own (the rhs norm, the gathered x) raise if one
+    would (``_uncaptured``).
     """
+
+    live = weakref.WeakSet()       # every solver of this process
 
     def __init__(self, A: sp.csr_matrix, group=None,
                  params: AMGParams | None = None,
@@ -108,17 +137,12 @@ class DistAMGSolver(AMGSolver):
 
     def _begin(self, ranks: RankGroup, params, krylov, device) -> None:
         self.torch_device = torch.device(device)
+        backend = None
         if ranks.size > 1:
-            check_backend(dist.get_backend(ranks.group), ranks.size,
-                          self.torch_device)
+            backend = dist.get_backend(ranks.group)
+            check_backend(backend, ranks.size, self.torch_device)
         self.ranks = ranks
-        # Several ranks run the loop eagerly.  gloo stages every halo and
-        # dot through host buffers, which a CUDA graph cannot capture.
-        # NCCL's captured collectives carry event record and wait nodes,
-        # which a WHILE body refuses (the device mode's pass graph fails
-        # to instantiate), and four NCCL ranks on four H100s hung in the
-        # host mode's first replays.  One rank issues no collective.
-        self.capture = ranks.size == 1
+        self.capture = loop_capture(backend, ranks.size)
         self.params = params or AMGParams()
         krylov = krylov or KrylovParams()
         self.krylov = check_krylov(krylov, self.torch_device)
@@ -146,6 +170,7 @@ class DistAMGSolver(AMGSolver):
         self._dot = partial(pdot, ranks=self.ranks,
                             compensated=self.krylov.compensated_dots)
         self._reset_loop_state()
+        DistAMGSolver.live.add(self)
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
         self.setup_time = time.perf_counter() - t0
@@ -236,7 +261,20 @@ class DistAMGSolver(AMGSolver):
         bpad = np.zeros(self.part.n_loc)
         bpad[: r1 - r0] = b
         t = torch.from_numpy(bpad).to(self.torch_device)
+        self._uncaptured()
         return DeviceRhs(t, float(np.sqrt(self._dot(t, t).item())))
+
+    def _uncaptured(self) -> None:
+        """Called before each uncaptured collective of the solver.  With
+        NCCL's graph mixing support off, a collective issued while a
+        graph launch that captured collectives on the same communicator
+        may still run is undefined (the stream does not order them): the
+        host reads every launch of the loop back before it goes on
+        (``_Loop.read``), and this raises where it has not."""
+        if any(lp.unread for lp in self._loops.values()):
+            raise RuntimeError("an uncaptured collective after a graph "
+                               "launch of the Krylov loop that the host "
+                               "has not read back")
 
     def _fetch(self, x: torch.Tensor):
         """Process-local: this rank's rows.  Otherwise the full solution,
@@ -247,6 +285,7 @@ class DistAMGSolver(AMGSolver):
             return lambda: x[: r1 - r0].cpu().numpy().astype(np.float64)
         if self.ranks.size == 1:
             return super()._fetch(x)
+        self._uncaptured()
         full = self.ranks.all_gather(x)[: self.n].cpu().numpy()
         return self._unperm(full.astype(np.float64))
 
@@ -260,4 +299,5 @@ class DistAMGSolver(AMGSolver):
         pad = torch.zeros(self.part.n_loc, dtype=torch.float64,
                           device=self.torch_device)
         pad[: r1 - r0] = torch.from_numpy(x[: r1 - r0]).to(pad.device)
+        self._uncaptured()
         return self.ranks.all_gather(pad)[: self.n].cpu().numpy()

@@ -110,11 +110,21 @@ class ChunkGraph:
 
     def run(self) -> None:
         if self.graph is None:
+            if self.fn is None:
+                raise RuntimeError("this graph was released")
             self._body()
             return
         self.instantiate()
         self.graph.replay()
         self.count()
+
+    def release(self) -> None:
+        """Destroy the captured graph and its instantiation now (not when
+        the object is collected); the graph runs no more."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+        self.fn = None
 
 
 def _check_guard(rr, k, brk, target, budget, prog) -> None:
@@ -178,7 +188,8 @@ class PassGraph:
     loop condition of ``method`` holds on ``state`` and ``guard``, then
     the ``tails`` graphs; ``run()`` returns ``prog`` as the host reads it
     after the pass (prog[1] is k, the iterations the pass ran) and the
-    number of host reads the pass made.
+    number of host reads the pass made; ``device_ms`` is the device time
+    of the last launch (captured passes).
 
     With ``capture`` (every graph captured) the pass is one launch of a
     graph built by ``csrc/graph_loop.cu`` (``build_s`` times its assembly,
@@ -193,6 +204,7 @@ class PassGraph:
         self.prog = prog
         self.exec = None
         self.build_s = 0.0
+        self.device_ms = None      # the last launch's, from CUDA events
         self._lib = None
         if capture:
             self._build()
@@ -221,9 +233,16 @@ class PassGraph:
             kinds = {"start": [g.node_kinds() for g in self.heads],
                      "step": self.step.node_kinds(),
                      "finish": [g.node_kinds() for g in self.tails]}
+            hint = ""
+            if "wait_event" in str(kinds):
+                hint = ("; NCCL's support for mixing captured and "
+                        "uncaptured collectives adds event nodes: set "
+                        "NCCL_GRAPH_MIXING_SUPPORT=0 before the "
+                        "communicator is created (multihost."
+                        "init_process_group does)")
             raise RuntimeError(f"pass graph (a CUDA graph WHILE node) not "
                                f"built: {msg.value.decode()}; the captured "
-                               f"parts' nodes: {kinds}")
+                               f"parts' nodes: {kinds}{hint}")
         torch.cuda.synchronize(self.prog.device)
         self.build_s = time.perf_counter() - t0
         self.exec, self._lib = out.value, lib
@@ -247,8 +266,12 @@ class PassGraph:
             for g in self.tails:
                 g.run()
             return self.prog.tolist(), reads + 1
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         self.launch()
+        ev[1].record()
         prog = self.prog.tolist()
+        self.device_ms = ev[0].elapsed_time(ev[1])
         iters = int(prog[1])
         for g in (*self.heads, *self.tails):
             g.count()
@@ -256,7 +279,10 @@ class PassGraph:
         loop_guard.launches += iters + 1
         return prog, 1
 
-    def __del__(self):
+    def release(self) -> None:
+        """Destroy the assembled graph's instantiation now."""
         if self.exec is not None and self._lib is not None:
             self._lib.pass_graph_destroy(self.exec)
-            self.exec = None
+        self.exec = None
+
+    __del__ = release

@@ -154,6 +154,23 @@ class _Loop:
             setattr(self, name, ChunkGraph(fn, bufs, self.capture, self.pool))
         self.chunks = {}
         self.passes = {}
+        # a launch of the loop's graphs that the host has not yet read
+        # back (``replay``, ``read``): on NCCL ranks no uncaptured
+        # collective may follow it (``multihost.init_process_group``)
+        self.unread = False
+        self.pass_ms = []          # the current solve's pass graphs' ms
+
+    def replay(self, g: ChunkGraph) -> None:
+        """Launch one of the loop's graphs (host mode); the host reads
+        prog (``read``) before it issues anything but more launches."""
+        g.run()
+        self.unread = True
+
+    def read(self, t: torch.Tensor):
+        """Read `t` (of prog) on the host, after every launch before it."""
+        out = t.tolist()
+        self.unread = False
+        return out
 
     def _cast_fn(self, bufs):
         return self.b64, torch.zeros_like(self.x64)
@@ -216,6 +233,12 @@ class _Loop:
         return [self.cast, self.init, self.step, self.finish,
                 *self.chunks.values()]
 
+    def release(self) -> None:
+        """Destroy every graph of the loop (the pass graphs first: they
+        hold copies of the others)."""
+        for g in (*self.passes.values(), *self.all_graphs()):
+            g.release()
+
 
 @dataclasses.dataclass
 class SolveResult:
@@ -234,6 +257,9 @@ class SolveResult:
                                # pass graph (device mode; an eager pass
                                # reads the guard after every step too),
                                # one per chunk and per pass (host mode)
+    pass_ms: list = dataclasses.field(default_factory=list)
+                               # device ms of each pass graph launch (CUDA
+                               # events; captured device mode only)
 
     @property
     def x(self) -> np.ndarray:
@@ -373,6 +399,17 @@ class AMGSolver:
         return sum(g.build_s for lp in self._loops.values()
                    for g in lp.passes.values())
 
+    def release_graphs(self) -> None:
+        """Destroy every CUDA graph this solver and its shallow copies
+        captured, now; the next solve captures them anew.  A graph holds
+        what its capture used until it is destroyed: on several NCCL ranks
+        that is the communicator (``multihost.destroy_process_group``)."""
+        for lp in self._loops.values():
+            lp.release()
+        self._loops.clear()
+        if self.torch_device.type == "cuda":
+            torch.cuda.synchronize(self.torch_device)
+
     def warm(self) -> None:
         """Capture every graph the configured loop mode can replay (the
         start, step and finish; the host mode's main chunk, the ladder 1,
@@ -425,21 +462,25 @@ class AMGSolver:
         (iterations, true ||r||^2, steps run, host reads)."""
         loop.set_limits(tol, maxiter)
         if self.krylov.loop_mode == "device":
-            (rr, iters, _, rr0, rnsq), reads = loop.pass_graph(first).run()
+            # one launch, read back before run() returns
+            pg = loop.pass_graph(first)
+            (rr, iters, _, rr0, rnsq), reads = pg.run()
+            if pg.device_ms is not None:
+                loop.pass_ms.append(pg.device_ms)
             iters = int(iters)
             self._note_contraction(rr, iters, rr0)
             return iters, rnsq, iters, reads
         main = self.krylov.chunk
         if first:
-            loop.cast.run()
-        loop.init.run()
+            loop.replay(loop.cast)
+        loop.replay(loop.init)
         k = self._first_chunk(tol, first)
         steps = reads = 0
         t0 = time.perf_counter()
         while True:
-            loop.chunk(k).run()
+            loop.replay(loop.chunk(k))
             steps += k
-            rr, iters, broken, rr0, _ = loop.prog.tolist()
+            rr, iters, broken, rr0, _ = loop.read(loop.prog)
             reads += 1
             iters = int(iters)
             if rr0 == 0.0:             # a zero right-hand side: no step
@@ -463,8 +504,8 @@ class AMGSolver:
                 k = min(_TAILS[-1], main)    # cold probe
             else:
                 k = main
-        loop.finish.run()
-        return iters, loop.prog[4].item(), steps, reads + 1
+        loop.replay(loop.finish)
+        return iters, loop.read(loop.prog[4]), steps, reads + 1
 
     def _pass_tol(self, tol: float, relres: float) -> float:
         """Inner tolerance for the next refinement pass: aim 10x past the
@@ -525,6 +566,7 @@ class AMGSolver:
                                self.setup_time, 0.0, [])
         loop = self._loop()
         loop.b64.copy_(b.b)
+        loop.pass_ms = []
         history = []
         total_iters = passes = steps = reads = 0
         converged = False
@@ -553,7 +595,8 @@ class AMGSolver:
         x = loop.x64.clone()
         return SolveResult(self._fetch(x), converged, relres, total_iters,
                            passes, self.setup_time, time.perf_counter() - t0,
-                           history, steps - total_iters, reads)
+                           history, steps - total_iters, reads,
+                           loop.pass_ms)
 
 
 def solve(A: sp.csr_matrix, b: np.ndarray, params: AMGParams | None = None,

@@ -181,6 +181,51 @@ def test_bench_checks_fail_a_line_off_its_reference(change, ok):
     assert all(bench_torch.checks({**line, **change}, 1e-8).values()) == ok
 
 
+@pytest.mark.parametrize("host,ok", [
+    ([57, 4], True), ([59, 4], True), ([55, 4], True), ([60, 4], False),
+    ([54, 4], False), ([57, 5], False), ([57, 3], False)])
+def test_bench_checks_hold_a_host_reference_of_its_own(host, ok):
+    """A reference with a host-mode count of its own (elasticity2d at
+    chunk 12) holds the host mode to that count's passes and to its
+    iterations within the slack, in place of the device mode's
+    iterations plus one per pass, which it does not meet; the device mode
+    stays held to its own count."""
+    line = {"converged": True, "relres_host_fp64": 1.4e-9, "iterations": 36,
+            "refine_passes": 4, "hbm_bw_GBs": None,
+            "loop_mode_counts": {"device": [36, 4], "host": host},
+            "reference": {"iterations": 36, "refine_passes": 4,
+                          "iteration_slack": 2,
+                          "host": {"iterations": 57, "refine_passes": 4}}}
+    got = bench_torch.checks(line, 1e-8)
+    assert got["host_iterations"] and got["host_refine_passes"] or not ok
+    assert all(got.values()) == ok
+    line["loop_mode_counts"]["device"] = [39, 4]
+    assert not bench_torch.checks(line, 1e-8)["iterations"]
+
+
+@pytest.mark.parametrize("config,chunk,host", [
+    ("elasticity2d", 12, {"iterations": 57, "refine_passes": 4}),
+    ("elasticity2d", 4, None), ("elasticity3d", 12, None)])
+def test_bench_host_reference_only_where_the_reference_has_one(config, chunk,
+                                                               host):
+    """Only elasticity2d at its own size and chunk 12 carries a host-mode
+    reference (the JAX package's count there, systems.REFERENCE); every
+    other line keeps the device mode's bound."""
+    args = bench_torch.build_argparser().parse_args(
+        ["--config", config, "--chunk", str(chunk)])
+    ref = bench_torch._case(args, None)[4]
+    assert ref.get("host") == host
+    line = {"converged": True, "relres_host_fp64": 1e-9, "hbm_bw_GBs": None,
+            "iterations": ref["iterations"],
+            "refine_passes": ref["refine_passes"],
+            "loop_mode_counts": {
+                "device": [ref["iterations"], ref["refine_passes"]],
+                "host": [ref["iterations"] + 21, ref["refine_passes"]]},
+            "reference": ref}
+    assert bench_torch.checks(line, 1e-8)["host_iterations"] == \
+        (host is not None)
+
+
 def test_kernel_bench_rows(capsys):
     out = kernel_bench_torch.main(["--n", "16", "--device", "cpu"])
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
@@ -219,9 +264,12 @@ def test_bench_dist_line(capsys, ranks):
     serial = _run(capsys, "--n", "16", "--loop-mode", "host")
     out = _run(capsys, "--n", "16", "--loop-mode", "host", "--dist",
                str(ranks))
-    assert set(serial) | {"dist_ranks", "dist_backend", "device_ops"} \
-        == set(out)
+    assert set(serial) | {"dist_ranks", "dist_backend", "dist_capture",
+                          "rank_solve_s", "device_ops"} == set(out)
     assert (out["dist_ranks"], out["dist_backend"]) == (ranks, "gloo")
+    assert out["dist_capture"] == (ranks == 1)
+    assert len(out["rank_solve_s"]) == ranks
+    assert out["rank_solve_s"][0] == out["solve_s"]
     assert out["ok"] and out["checks"] == serial["checks"]
     assert abs(out["iterations"] - serial["iterations"]) <= 1
     assert out["refine_passes"] == serial["refine_passes"]

@@ -497,6 +497,58 @@ def test_dist_two_ranks_share_the_card_through_gloo(cuda, setup):
         assert res[1]["row_range"][1] == res[0]["n"]
 
 
+@pytest.mark.parametrize("mode", ["device", "host"])
+def test_dist_two_nccl_ranks_capture_their_loop(cuda, mode):
+    """Two NCCL ranks, one card each, run the process-local solve from
+    captured graphs with the halos and all-reduces inside them: the same
+    counts on both ranks (and the JAX record's 12 / 2 +-1), x with the same
+    bits as the same solve run eagerly from the same state, no masked
+    step, one host read per pass in the device mode (its pass graphs
+    built) and the eager solve's reads in the host mode, and no event
+    node in the captured step (a WHILE body holds none)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: NCCL ranks take one card each")
+    from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
+    res = launch_processes(2, "poisson3d", 48, setup="blocked",
+                           device="cuda", backend="nccl", loop_mode=mode,
+                           compare_eager=True, timeout=300)
+    assert len({(r["iterations"], r["passes"]) for r in res}) == 1
+    for r in res:
+        assert r["backend"] == "nccl" and r["capture"], r
+        assert r["converged"] and r["true_relres"] <= 1e-8, r
+        assert abs(r["iterations"] - 12) <= 1 and r["passes"] == 2, r
+        assert (r["eager"]["iterations"], r["eager"]["passes"]) == \
+            (r["iterations"], r["passes"]), r
+        assert r["same_bits"], r
+        assert r["masked_steps"] == 0, r
+        kinds = r["step_node_kinds"]
+        assert kinds["kernel"] > 0, kinds
+        assert not {"wait_event", "event_record"} & set(kinds), kinds
+        assert r["launches"]["dia_spmv"] > 0, r
+        assert r["launches"]["ell_spmv"] > 0, r
+        if mode == "device":
+            assert r["host_reads"] == r["passes"], r
+            assert r["pass_graph_s"] > 0, r
+            assert len(r["pass_ms"]) == r["passes"], r
+            assert 0 < r["pass_share"] < 1, r
+            assert r["launches"]["loop_guard"] > 0, r
+        else:
+            assert r["host_reads"] == r["eager"]["host_reads"], r
+            assert r["pass_ms"] == [], r
+
+
+def test_nccl_ranks_that_raise_after_a_captured_solve_exit(cuda):
+    """Two NCCL ranks whose pass graphs captured collectives raise after
+    their solve: the teardown at exit releases the graphs before it
+    destroys the group, so the rank exits with its error instead of
+    waiting at the time limit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: NCCL ranks take one card each")
+    from test_torch_capture_decision import raising_ranks
+    text = raising_ranks("nccl", "cuda")
+    assert '"capture": true' in text, text
+
+
 def _flagship_small(cuda, **kw):
     """The flagship's parameters on poisson3d(24) in the device loop mode
     (chunk 4), its rhs on the card."""

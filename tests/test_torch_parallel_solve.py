@@ -60,7 +60,7 @@ def holds_jax_counts(solves, name):
     assert g["converged"] and g["relres_host_fp64"] <= 1e-8, g
     assert abs(g["iterations"] - it) <= slack, (g, want[name])
     assert g["passes"] == passes, (g, want[name])
-    assert g["capture"] is False        # several ranks run the loop eagerly
+    assert g["capture"] is False        # gloo ranks run the loop eagerly
     if name == "replicated":
         assert "DeviceLevel" in g["levels"] and "DistLevel" in g["levels"]
     if name in ("gs2", "bf16", "poisson3d_chebyshev"):
@@ -69,7 +69,7 @@ def holds_jax_counts(solves, name):
 
 def one_rank_takes_the_four_ranks_counts(solves, name):
     """A one-rank DistAMGSolver (no process group) captures its loop on
-    the card (several ranks run it eagerly), takes the four ranks' counts
+    the card (gloo ranks run it eagerly), takes the four ranks' counts
     and reaches the tolerance."""
     outs, _ = solves
     A, pkw, kkw = W.solve_cases()[name]

@@ -1,15 +1,18 @@
-"""One rank of the port's distributed CPU tests (imports numpy, scipy and
-the port only; never jax).  Started by the tests through
+"""One rank of the port's distributed tests (imports numpy, scipy and the
+port only; never jax).  Started by the tests through
 ``sparsh_amg_tpu_torch.parallel.multihost.spawn_ranks``:
 
-    python tests/torch_dist_rank.py ops|cycles|levels
+    python tests/torch_dist_rank.py ops|cycles|levels|raises
 
 ``ops`` applies every distributed operator of ``op_cases()`` to the same
 seeded inputs and prints this rank's outputs; ``cycles`` and ``levels``
 run the distributed solves of ``solve_cases(group)`` and print their
 counts.  The cases are
 built here so that the tests build the JAX package's side from the very
-same matrices.
+same matrices.  ``raises`` solves poisson3d(16) in the device loop mode
+(captured on NCCL ranks), then raises and leaves the process group to
+the teardown at exit; lines printed at exit say whether the solver's
+graphs were released and the group destroyed by then.
 """
 from __future__ import annotations
 
@@ -206,11 +209,39 @@ def spawn(job: str):
     return wait
 
 
+def _raises(device, box: dict) -> None:
+    import torch.distributed as dist
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.params import KrylovParams
+    from sparsh_amg_tpu_torch.parallel import DistAMGSolver, multihost
+    A = poisson3d(16)
+    solver = box["solver"] = DistAMGSolver(
+        A, params=multihost._flagship_params().replace(dense_size=256),
+        krylov=KrylovParams(tol=1e-8, maxiter=60, loop_mode="device"),
+        device=device)
+    res = solver.solve(solve_rhs(A.shape[0]))
+    print(json.dumps({"iterations": res.iterations,
+                      "capture": solver._loop().capture}), flush=True)
+    raise RuntimeError(f"rank {dist.get_rank()} raises after its solve")
+
+
 def main(job: str) -> None:
+    import atexit
     import torch.distributed as dist
     from sparsh_amg_tpu_torch.parallel import multihost
     multihost.pin_threads()
-    multihost.init_process_group()
+    box = {}
+    if job == "raises":
+        # atexit runs last in, first out: registered before the group's
+        # teardown (init_process_group), this runs after it
+        atexit.register(lambda: print(
+            "at exit: graphs "
+            + ("held" if box["solver"]._loops else "released")
+            + ", group " + ("alive" if dist.is_initialized()
+                            else "destroyed"), flush=True))
+    device = multihost.init_process_group()
+    if job == "raises":
+        _raises(device, box)
     out = _ops(dist.get_rank()) if job == "ops" else _solves(job)
     print(json.dumps(out), flush=True)
     dist.destroy_process_group()
