@@ -42,11 +42,15 @@ Phases (any failure raises, and the script exits non-zero):
   5. the systems path (smoothed aggregation, rigid-body modes, block
      levels): elasticity3d(40) and elasticity2d(512), each with every
      block (fp32 and bf16) and ELL operator of the hierarchy held
-     against its plain version (and elasticity2d's fine DIA operator
-     under all five tails, timed with L2 flushed between launches since
-     its 44 MB table fits in L2), then primed at tol 1e-2 and solved to
-     1e-8 with launch counts from that solve; and a small elasticity3d(8)
-     solve on the card held against the CPU;
+     against its plain version, two launches with the same bits, at the
+     launch shape the solve gives it (the block levels' W, T, G, S
+     printed in launch_shapes and per case; block tables that fit in L2
+     timed with L2 flushed between launches, and every timed block case
+     also as a CUDA graph replay, graph_ms), and elasticity2d's fine DIA
+     operator under all five tails, timed with L2 flushed between
+     launches since its 44 MB table fits in L2; then primed at tol 1e-2
+     and solved to 1e-8 with launch counts from that solve; and a small
+     elasticity3d(8) solve on the card held against the CPU;
   6. the seven scalar configurations of configs.py at full size (weighted
      Jacobi, l1-Jacobi, Chebyshev and two-stage Gauss-Seidel; V and W
      cycles; CG and BiCGStab): every DIA table of each hierarchy (the
@@ -153,7 +157,8 @@ def _errors(name, got, want):
 
 
 def compare(name, kernel, plain, results, time_it=True, work=None,
-            library=None, same_bits=False, flush=None, extra=None):
+            library=None, same_bits=False, flush=None, extra=None,
+            graph=False):
     """Kernel output(s) against the plain version's; raise above REL_TOL.
     Records max_abs_err, max_rel_err (normwise), and when timed both
     median device times and the kernel's time per call as the host
@@ -163,9 +168,10 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
     the same function (its output held to the plain version too), or says
     why there is none.  `same_bits`: a second launch must give the same
     bits.  `flush`: see timed_ms (device times only).  `extra`: more keys
-    for the record."""
+    for the record.  `graph`: also the time per launch of a CUDA graph
+    replay (graph_ms), beside ms."""
     import torch
-    from sparsh_amg_tpu_torch.utils.timing import timed_ms
+    from sparsh_amg_tpu_torch.utils.timing import graph_ms, timed_ms
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     abs_err, rel_err = _errors(name, got, want)
@@ -179,6 +185,8 @@ def compare(name, kernel, plain, results, time_it=True, work=None,
             again if isinstance(again, tuple) else (again,)))
     if time_it:
         rec["ms"] = timed_ms(kernel, flush=flush)
+        if graph:
+            rec["graph_ms"] = graph_ms(kernel)
         rec["plain_ms"] = timed_ms(plain, flush=flush)
         rec["call_ms"] = timed_ms(kernel, queued=False)
         rec["l2_flushed"] = flush is not None
@@ -385,27 +393,34 @@ def ell_case(tag, M, rng, results, time_it, same_bits=True):
                    extra=layout)
 
 
-def block_case(tag, M, rng, results, time_it, same_bits=False):
-    """The block kernel against its plain version on one table."""
+def block_case(tag, M, rng, results, time_it, same_bits=True):
+    """The block kernel against its plain version on one table, at the
+    launch shape the solve gives it (W node rows a thread, T lanes a
+    group, or the split rows' G x S); timed with L2 flushed between
+    launches where the tables fit in L2, and as a graph replay."""
     import torch
     from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
-                                                    block_ell_spmv)
-    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+                                                    block_ell_spmv,
+                                                    block_shape)
     from sparsh_amg_tpu_torch.utils.accounting import op_bytes
+    from sparsh_amg_tpu_torch.utils.timing import l2_flush_buffer
     x = torch.from_numpy(rng.standard_normal(max(M.n_pad, M.n_cols)).astype(
         np.float32)).to(M.cols.device)
     dt = "bf16" if M.vals.dtype == torch.bfloat16 else "fp32"
-    g, s = launch_shape(M.n_rows, M.k, M.cols.device)
-    work = lib = None
+    w, t, g, s = block_shape(M.cols, M.vals)
+    work = lib = flush = None
     if time_it:
-        work = (*op_bytes(M), 2 * int(M.lens.sum()) * M.bs * M.bs)
+        ob = op_bytes(M)
+        work = (*ob, 2 * int(M.lens.sum()) * M.bs * M.bs)
         lib = block_library(M, x)
+        flush = l2_flush_buffer(ob.padded)
     return compare(f"block_ell_spmv {tag} {dt} bs={M.bs} K={M.k} "
-                   f"n={M.n_rows} n_pad={M.n_pad} G={g} S={s}",
+                   f"n={M.n_rows} n_pad={M.n_pad} W={w} T={t} G={g} S={s}",
                    lambda: block_ell_spmv(M.cols, M.vals, M.lens, x),
                    lambda: block_ell_plain(M.cols, M.vals, x),
                    results, time_it, work=work, library=lib,
-                   same_bits=same_bits)
+                   same_bits=same_bits, flush=flush, graph=time_it,
+                   extra={"W": w, "T": t, "G": g, "S": s})
 
 
 def long_row_cases(rng, results, dev):
@@ -456,13 +471,13 @@ def sparse_operators(levels):
 
 def launch_shapes(levels):
     """The launch of every ELL and block operator of a device hierarchy,
-    as {name: [rows, K, G, S]} (the split rows' lanes and cluster blocks)
-    and [rows, K, G, S, T] for ELL (T lanes per row of a slice)."""
-    from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
+    as {name: [rows, K, G, S, T]} for ELL (the split rows' lanes and
+    cluster blocks, T lanes per row of a slice) and [rows, K, W, T, G, S]
+    for a block level (W node rows a thread, T lanes a group)."""
+    from sparsh_amg_tpu_torch.ops.block_ell import (BlockEllMatrix,
+                                                    block_shape)
     from sparsh_amg_tpu_torch.ops.ell_spmv import split_shape
-    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
-    return {name: [M.n_rows, M.k,
-                   *launch_shape(M.n_rows, M.k, M.cols.device)]
+    return {name: [M.n_rows, M.k, *block_shape(M.cols, M.vals)]
             if isinstance(M, BlockEllMatrix) else
             [M.n_rows, M.k, *split_shape(M, M.cols.device), M.lanes]
             for name, M in sparse_operators(levels)}
@@ -1464,7 +1479,8 @@ def main(nside=192, dev="cuda"):
     keep = ("case", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by",
             "bound_measured_ms", "library_ms", "library_bf16_ms",
             "library_note", "real_bytes", "padded_bytes", "max_rel_err",
-            "same_bits", "instantiation", "l2_flushed")
+            "same_bits", "instantiation", "l2_flushed", "graph_ms", "W",
+            "T", "G", "S")
 
     def entry(name, source, cases, timed, replaces):
         errs = [c["max_abs_err"] for c in every

@@ -48,10 +48,10 @@ _ENTRIES = {
     # stream
     "ell_spmv_launch": [_i, _i, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                         _i, _p, _p, _p],
-    # val_bf16, bs, cols, vals, lens, kn, n, n_pad, lanes, cluster, x, y,
-    # stream
-    "block_ell_spmv_launch": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _i, _p,
-                              _p, _p],
+    # val_bf16, bs, cols, vals, lens, kn, n, n_pad, nodes (W), lanes (T),
+    # split lanes, cluster, x, y, stream
+    "block_ell_spmv_launch": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                              _i, _p, _p, _p],
     # the split-row launch's limits (csrc/split_rows.cuh); no CUDA call
     "split_max_lanes": [],
     "split_max_cluster": [],

@@ -21,8 +21,11 @@ TPU layout exist only for Mosaic and are not ported.
 
 ``block_ell_spmv`` takes the plain PyTorch version for tensors on the CPU,
 launches the CUDA kernel for tensors on the card, and raises for anything
-else; its launch shape comes from ``split_rows.launch_shape`` over (dof
-rows, node slots).  ``block_ell_spmv.launches`` counts kernel launches.
+else; its launch shape (dof rows: one thread each, or split over G
+lanes and S cluster blocks; node groups: W node rows a thread, T lanes
+a group) comes from ``split_rows.block_launch_shape`` over (node rows,
+block size, node slots, value bytes) and the card.
+``block_ell_spmv.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import scipy.sparse as sp
 import torch
 
 from .formats import _round_up
-from .split_rows import launch_shape
+from .split_rows import block_launch_shape
 
 VAL_DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_SIZES = (2, 3, 4, 5, 6)     # the kernel's template instantiations
@@ -123,6 +126,29 @@ def _check(cols, vals, lens, x):
                          f"{vals.device}, {lens.device}, {x.device}")
 
 
+def check_shape(shape, val_dtype) -> tuple:
+    """A launch shape (W, T, G, S) the kernel takes for values of
+    `val_dtype`: dof rows (W = T = 1; G x S = 1 one thread a row, else
+    split over G lanes and S cluster blocks), or node groups (W = 16
+    bytes of values, T a power of two up to 32 lanes, G = S = 1)."""
+    w, t, g, s = (int(a) for a in shape)
+    wide = 16 // (torch.finfo(val_dtype).bits // 8)
+    rows = w == 1 and t == 1 and g >= 1 and s >= 1
+    groups = w == wide and t in (1, 2, 4, 8, 16, 32) and g == s == 1
+    if not (rows or groups):
+        raise ValueError(f"no block-ELL launch of shape (W, T, G, S) = "
+                         f"{(w, t, g, s)} for {val_dtype} values")
+    return w, t, g, s
+
+
+def block_shape(cols, vals) -> tuple:
+    """The launch shape (W, T, G, S) that block_ell_spmv gives these
+    tables on their card."""
+    k, nb = cols.shape
+    return block_launch_shape(nb, vals.shape[1], k, vals.element_size(),
+                              vals.device)
+
+
 def block_ell_spmv(cols, vals, lens, x):
     """y = A x for a BlockEllMatrix's tables; x must cover every column."""
     _check(cols, vals, lens, x)
@@ -130,14 +156,26 @@ def block_ell_spmv(cols, vals, lens, x):
         return block_ell_plain(cols, vals, x, lens)
     if x.device.type != "cuda":
         raise ValueError(f"no block-ELL kernel for device {x.device}")
+    return _launch(cols, vals, lens, x, block_shape(cols, vals))
+
+
+def _launch(cols, vals, lens, x, shape):
+    """Launch the kernel on tables that passed ``_check`` at the launch
+    shape (W, T, G, S) (``check_shape``'s); the wrapper passes
+    ``block_shape``'s, sweeps and tests force others."""
     from .. import _build
+    w, t, g, s = check_shape(shape, vals.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no block-ELL kernel for device {x.device}")
     k, nb = cols.shape
     bs, n_pad = vals.shape[1], vals.shape[2]
-    g, s = launch_shape(nb * bs, k, x.device)
+    if n_pad % 8 or vals.data_ptr() % 16:
+        raise ValueError(f"the kernel's 16-byte value loads need n_pad a "
+                         f"multiple of 8 (got {n_pad}) and aligned vals")
     y = torch.empty(n_pad, dtype=torch.float32, device=x.device)
     rc = _build.lib().block_ell_spmv_launch(
         int(vals.dtype == torch.bfloat16), bs, cols.data_ptr(),
-        vals.data_ptr(), lens.data_ptr(), k, nb * bs, n_pad, g, s,
+        vals.data_ptr(), lens.data_ptr(), k, nb * bs, n_pad, w, t, g, s,
         x.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "block_ell_spmv")

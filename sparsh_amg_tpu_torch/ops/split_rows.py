@@ -10,7 +10,10 @@ and the kernels' lane and cluster limits (from the kernel library).
 
 ``choose_lanes`` picks, when an ELL operator is packed, the T lanes that
 share each row of a slice, the V slots a lane loads at once and the
-window of rows sorted by length.
+window of rows sorted by length.  ``choose_block`` picks the block-ELL
+kernel's launch: dof rows (one thread a row, or split over lanes and
+cluster blocks) or node groups (W node rows a thread, T lanes a
+group).
 """
 from __future__ import annotations
 
@@ -79,15 +82,76 @@ def _limits(index: int) -> tuple:
             lib.split_max_lanes(), lib.split_max_cluster())
 
 
-def limits(device) -> tuple:
-    """(resident threads, max lanes, max cluster) of a CUDA device."""
+def _index(device) -> int:
+    """The index of a CUDA device (the current one for "cuda")."""
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"no split-row kernel for device {device}")
-    return _limits(torch.cuda.current_device() if device.index is None
-                   else device.index)
+        raise ValueError(f"no split-row or block kernel for device {device}")
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def limits(device) -> tuple:
+    """(resident threads, max lanes, max cluster) of a CUDA device."""
+    return _limits(_index(device))
 
 
 def launch_shape(n_rows: int, k: int, device) -> tuple:
     """``choose``'s (G, S) on the given CUDA device."""
     return choose(n_rows, k, *limits(device))
+
+
+BLOCK_HEAD = 16     # node slots the block kernel sums without lens
+                    # (kHead, csrc/block_ell_spmv.cu)
+BLOCK_WIDE = 16     # bytes of values a node-group thread loads at once
+GROUP_SLOTS = 4     # node slots a node-group lane keeps at least
+
+
+def choose_block(nb: int, bs: int, k: int, val_bytes: int,
+                 limits: tuple = H100_LIMITS) -> tuple:
+    """(W, T, G, S) of the block-ELL kernel for nb node rows of bs dofs
+    and K = k node slots, values of `val_bytes`, on a card of `limits`
+    (resident threads, max lanes, max cluster blocks).
+
+    Dof rows that leave most of the card idle (under a quarter of its
+    resident threads) are split: P = G * S doubles, lanes first, while
+    the split rows still fit the resident threads and P < K, short rows
+    included, so that a row is a few dependent loads deep.  Rows that
+    fill more of the card take no split (its shared-memory reduction
+    costs more than it saves there): one thread per dof row where rows
+    hold at most BLOCK_HEAD slots, else node groups of W = BLOCK_WIDE /
+    val_bytes nodes a thread (16-byte value loads), T lanes doubling
+    while the groups' lanes fit the resident threads and each lane keeps
+    GROUP_SLOTS slots (scripts/torch_split_sweep.py --sweep on the block
+    cases on an H100, PERF.md)."""
+    resident, max_lanes, max_cluster = limits
+    rows = nb * bs
+    if 4 * rows < resident:
+        p = 1
+        while (p < max_lanes * max_cluster and rows * 2 * p <= resident
+               and p < k):
+            p *= 2
+        g = min(p, max_lanes)
+        return 1, 1, g, p // g
+    if k <= BLOCK_HEAD:
+        return 1, 1, 1, 1
+    w = BLOCK_WIDE // val_bytes
+    groups = -(-nb // w)
+    t = 1
+    while (t < 32 and groups * 2 * t <= resident
+           and k >= GROUP_SLOTS * 2 * t):
+        t *= 2
+    return w, t, 1, 1
+
+
+@functools.lru_cache(maxsize=None)
+def _block_shape(nb: int, bs: int, k: int, val_bytes: int,
+                 index: int) -> tuple:
+    return choose_block(nb, bs, k, val_bytes, _limits(index))
+
+
+def block_launch_shape(nb: int, bs: int, k: int, val_bytes: int,
+                       device) -> tuple:
+    """``choose_block``'s (W, T, G, S) on the given CUDA device (cached;
+    no host sync)."""
+    return _block_shape(nb, bs, k, val_bytes, _index(device))

@@ -8,6 +8,7 @@ Krylov loop for ``KrylovParams(loop_mode="auto")``.
 The device-time harness of ``chip_smoke.py``, ``kernel_bench_torch.py``
 and ``scripts/torch_dia_sweep.py`` lives here too: ``timed_ms`` (launches
 queued behind a device sleep, so CUDA events see device time alone),
+``graph_ms`` (launches back to back in one CUDA graph replay),
 ``l2_flush_buffer`` and the measured copy rate ``copy_bandwidth``.  This
 module imports nothing of the package, so a script can load it by path
 from one checkout while it times another.
@@ -21,6 +22,7 @@ from contextlib import contextmanager
 import torch
 
 TIMED_RUNS = 25
+GRAPH_LAUNCHES = 20         # launches captured in graph_ms's graph
 SLEEP_CYCLES = 50_000_000   # ~30 ms of device sleep ahead of timed runs
 
 
@@ -58,6 +60,40 @@ def timed_ms(fn, queued=True, flush=None, runs=TIMED_RUNS):
         events.append((e0, e1))
     torch.cuda.synchronize()
     return statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
+
+
+def graph_ms(fn, launches=GRAPH_LAUNCHES, runs=TIMED_RUNS):
+    """Device ms per launch of fn() replayed from a CUDA graph: `launches`
+    calls captured in one graph, each replay timed between two CUDA
+    events and divided by `launches`, the median over `runs` replays.
+    The launches run back to back, as inside the solver's graphs, so the
+    time holds no per-launch event and host gap (operands that fit in L2
+    stay there between launches).  fn must be capturable: no host sync,
+    its launch state built by a first call."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(runs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        samples.append(e0.elapsed_time(e1) / launches)
+    del graph
+    return statistics.median(samples)
 
 
 def copy_bandwidth(device, runs: int = 5, reps: int = 10) -> float:

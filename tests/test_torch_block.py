@@ -7,7 +7,10 @@ JAX package, on the CPU.
   per node and a random block matrix with intra-block holes;
 * to_device picks the block layout on exactly the levels where the JAX
   package, with the TPU layouts forced (SPARSH_FORCE_GELL=1), picks
-  BlockGellMatrix;
+  BlockGellMatrix, and hierarchy_from_jax packs the same tables;
+* the kernel's launch shapes (W node rows a thread, T lanes a group, the
+  split rows' G x S): which ones the wrapper takes, and the chooser's
+  rule and its shapes on the solves' block levels;
 * hierarchy_from_jax decodes GellMatrix, SplitGell and BlockGellMatrix
   into the stored values, and one V-cycle on that identical data agrees
   with the JAX make_cycle;
@@ -37,10 +40,12 @@ from sparsh_amg_tpu.solve import cycles as jcycles
 from sparsh_amg_tpu.solve import device as jdevice
 from sparsh_amg_tpu.solve.solver import AMGSolver as JaxSolver
 from sparsh_amg_tpu_torch import AMGSolver, systems, to_device
-from sparsh_amg_tpu_torch.ops.block_ell import (BlockEllMatrix,
+from sparsh_amg_tpu_torch.ops.block_ell import (BlockEllMatrix, _launch,
                                                 block_ell_plain,
-                                                block_ell_spmv,
+                                                block_ell_spmv, check_shape,
                                                 csr_to_block_ell)
+from sparsh_amg_tpu_torch.ops.split_rows import (BLOCK_HEAD, GROUP_SLOTS,
+                                                 H100_LIMITS, choose_block)
 from sparsh_amg_tpu_torch.solve import cycles, device
 
 
@@ -88,6 +93,9 @@ MATRICES = {
     "elasticity2d(12) bs2": lambda: (elasticity2d(12).tocsr(), 2),
     # missing intra-block entries, as tests/test_block_gell.py
     "random holes bs3": lambda: (systems.random_blocks(70, 3, 1, 0.08), 3),
+    "random holes bs4": lambda: (systems.random_blocks(61, 4, 2, 0.1), 4),
+    # empty node rows (no block at all) beside full ones
+    "empty rows bs5": lambda: (_holed(5), 5),
 }
 DTYPES = {"fp32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -173,6 +181,88 @@ def test_block_wrapper_on_cpu_counts_nothing_and_checks():
     assert csr_to_block_ell(sp.eye(14, format="csr"), 7, device="cpu") is None
 
 
+# launch shapes (W, T, G, S) the kernel takes and refuses, by value dtype:
+# dof rows (W = T = 1, G lanes and S cluster blocks) or node groups (W =
+# 16 bytes of values, T a power of two up to 32 lanes, G = S = 1)
+GOOD_SHAPES = {"fp32": [(1, 1, 1, 1), (4, 32, 1, 1), (4, 1, 1, 1),
+                        (1, 1, 32, 8), (1, 1, 2, 1)],
+               "bf16": [(8, 2, 1, 1), (1, 1, 1, 1), (1, 1, 4, 1)]}
+BAD_SHAPES = {"fp32": [(8, 1, 1, 1), (2, 1, 1, 1), (1, 2, 1, 1),
+                       (4, 3, 1, 1), (4, 64, 1, 1), (4, 1, 2, 1),
+                       (1, 1, 0, 1)],
+              "bf16": [(4, 1, 1, 1), (16, 1, 1, 1), (8, 1, 1, 2),
+                       (8, 0, 1, 1), (1, 16, 1, 1)]}
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_block_launch_shapes_checked_on_cpu(dt):
+    """check_shape takes the kernel's launch shapes and refuses the
+    others; a forced launch checks its shape first and has no kernel for
+    CPU tensors (the wrapper takes the plain version there)."""
+    A, bs = MATRICES["random holes bs4"]()
+    M = csr_to_block_ell(A, bs, DTYPES[dt][0], device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        M.n_pad).astype(np.float32))
+    assert torch.equal(block_ell_spmv(M.cols, M.vals, M.lens, x),
+                       block_ell_plain(M.cols, M.vals, x, M.lens))
+    for shape in GOOD_SHAPES[dt]:
+        assert check_shape(shape, M.vals.dtype) == shape
+        with pytest.raises(ValueError, match="for device cpu"):
+            _launch(M.cols, M.vals, M.lens, x, shape)
+    for shape in BAD_SHAPES[dt]:
+        with pytest.raises(ValueError, match="no block-ELL launch"):
+            _launch(M.cols, M.vals, M.lens, x, shape)
+
+
+# the block levels of the two elasticity solves: (node rows, bs, K) from
+# the port's host setup (systems.problem, amg_setup), and the launch
+# (W, T, G, S) choose_block gives them on an H100 for fp32 values
+SOLVE_LEVELS = {
+    "e3d L0": ((67240, 3, 27), (4, 4, 1, 1)),
+    "e3d L1": ((2744, 6, 66), (1, 1, 16, 1)),
+    "e3d L2": ((770, 6, 431), (1, 1, 32, 1)),
+    "e2d L1": ((29241, 3, 9), (1, 1, 1, 1)),
+    "e2d L2": ((3249, 3, 10), (1, 1, 16, 1)),
+}
+
+
+@pytest.mark.parametrize("level", SOLVE_LEVELS)
+def test_choose_block_on_the_solve_levels(level):
+    (nb, bs, k), want = SOLVE_LEVELS[level]
+    assert choose_block(nb, bs, k, 4) == want
+    # bf16 values: node groups of 8 nodes, the same lanes
+    assert choose_block(nb, bs, k, 2) == (
+        (8, *want[1:]) if want[0] > 1 else want)
+
+
+@pytest.mark.parametrize("k", [1, 9, 16, 17, 27, 66, 431])
+@pytest.mark.parametrize("nb", [0, 1, 13, 700, 3249, 29241, 67240, 1 << 20])
+def test_choose_block_rules(nb, k):
+    """For both value types and bs 2 and 6, a shape the kernel takes:
+    dof rows split (a power of two P = G * S, lanes first, P < K, the
+    split rows within the resident threads) only where they fill under a
+    quarter of the card; else one thread per dof row for K <= BLOCK_HEAD,
+    node groups of 16 bytes of values and T lanes (within the resident
+    threads, GROUP_SLOTS slots a lane) above it."""
+    resident, max_lanes, _ = H100_LIMITS
+    for val_bytes, dt in ((4, torch.float32), (2, torch.bfloat16)):
+        for bs in (2, 6):
+            w, t, g, s = shape = choose_block(nb, bs, k, val_bytes)
+            assert check_shape(shape, dt) == shape
+            rows = nb * bs
+            if 4 * rows < resident:
+                p = g * s
+                assert (w, t) == (1, 1) and p & (p - 1) == 0
+                assert s == 1 or g == max_lanes
+                assert p == 1 or (rows * p <= resident and p // 2 < k)
+            elif k <= BLOCK_HEAD:
+                assert shape == (1, 1, 1, 1)
+            else:
+                assert w == 16 // val_bytes and g == s == 1
+                assert t == 1 or (-(-nb // w) * t <= resident
+                                  and k >= GROUP_SLOTS * t)
+
+
 def _holed(bs):
     """random_blocks with node rows 0 and 3 emptied (no block at all)."""
     A = systems.random_blocks(40, bs, 2, 0.1).tolil()
@@ -232,6 +322,28 @@ def test_hierarchy_from_jax_row_lengths(prob, monkeypatch):
             assert type(mt) is type(mh), f
             np.testing.assert_array_equal(mt.lens.numpy(), mh.lens.numpy())
     assert seen == {"EllMatrix", "BlockEllMatrix"}
+
+
+@pytest.mark.parametrize("prob", PROBLEMS)
+def test_both_packers_give_the_same_block_tables(prob, monkeypatch):
+    """to_device (from the host CSR) and hierarchy_from_jax (from the
+    decoded TPU layout) pack every block level through csr_to_block_ell
+    into the same tables, bit for bit."""
+    monkeypatch.setenv("SPARSH_FORCE_GELL", "1")
+    A, ns, p, hier = _hierarchy(*PROBLEMS[prob])
+    T = device.hierarchy_from_jax(jdevice.to_device(hier, _jax(p)),
+                                  device="cpu")
+    H = to_device(hier, p, device="cpu")
+    blocks = 0
+    for lt, lh in zip(T.levels, H.levels):
+        assert isinstance(lt.A, BlockEllMatrix) == \
+            isinstance(lh.A, BlockEllMatrix)
+        if isinstance(lh.A, BlockEllMatrix):
+            blocks += 1
+            for f in ("cols", "vals", "lens"):
+                assert torch.equal(getattr(lt.A, f), getattr(lh.A, f)), f
+            assert (lt.A.n_rows, lt.A.n_cols) == (lh.A.n_rows, lh.A.n_cols)
+    assert blocks >= 1
 
 
 def _decoded(M):

@@ -253,6 +253,143 @@ def test_plain_fp64_product_is_deterministic(cuda, shape):
     assert _rel(got[: A.shape[0]].cpu(), want) <= 1e-13
 
 
+# launch shapes (W, T, G, S) of the block kernel: dof rows (one thread a
+# row, or split over G lanes and S cluster blocks) and node groups of 16
+# bytes of values ("wide": 4 fp32, 8 bf16 nodes) over T lanes; None is
+# the chooser's
+BLOCK_SHAPES = [None, (1, 1, 1, 1), (1, 1, 2, 1), (1, 1, 16, 1),
+                (1, 1, 32, 2), ("wide", 1, 1, 1), ("wide", 4, 1, 1),
+                ("wide", 32, 1, 1)]
+
+
+def _block_spmv(cols, vals, lens, x, shape):
+    """The wrapper (shape None) or a launch forced to `shape`."""
+    from sparsh_amg_tpu_torch.ops.block_ell import _launch, block_ell_spmv
+    if shape is None:
+        return block_ell_spmv(cols, vals, lens, x)
+    if shape[0] == "wide":
+        shape = (16 // vals.element_size(), *shape[1:])
+    return _launch(cols, vals, lens, x, shape)
+
+
+def _holed_blocks(nb, bs, seed, density):
+    """random_blocks with node rows 0 and 3 and the last one emptied."""
+    from sparsh_amg_tpu_torch.systems import random_blocks
+    A = random_blocks(nb, bs, seed, density).tolil()
+    for node in (0, 3, nb - 1):
+        A[node * bs:(node + 1) * bs, :] = 0
+    A = A.tocsr()
+    A.eliminate_zeros()
+    return A
+
+
+# node rows not a multiple of 4 or 8 (a last, part group), K above the
+# kernel's 16-slot head (rows stop at their lengths), K within it, and
+# empty node rows
+BLOCK_FAMILIES = {
+    "701 nodes K>16": lambda bs: _holed_blocks(701, bs, 1, 0.02),
+    "703 nodes K<=16": lambda bs: _holed_blocks(703, bs, 2, 0.004),
+    "13 nodes": lambda bs: _holed_blocks(13, bs, 3, 0.3),
+}
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES)
+@pytest.mark.parametrize("family", BLOCK_FAMILIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [2, 3, 4, 5, 6])
+def test_block_kernel_launch_shapes(cuda, bs, dtype, family, shape):
+    """Every launch shape against the plain version, the same bits twice,
+    y = 0 on the padding rows and on empty node rows."""
+    from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
+                                                    block_ell_spmv,
+                                                    csr_to_block_ell)
+    A = BLOCK_FAMILIES[family](bs)
+    M = csr_to_block_ell(A, bs, dtype, device=cuda)
+    if family == "703 nodes K<=16":
+        assert M.k <= 16
+    elif family == "701 nodes K>16":
+        assert M.k > 16
+    x = _vec(np.random.default_rng(1), M.n_pad, cuda)
+    before = block_ell_spmv.launches
+    got = _block_spmv(M.cols, M.vals, M.lens, x, shape)
+    again = _block_spmv(M.cols, M.vals, M.lens, x, shape)
+    torch.cuda.synchronize()
+    assert block_ell_spmv.launches == before + 2
+    assert _rel(got, block_ell_plain(M.cols, M.vals, x, M.lens)) <= 1e-5
+    assert torch.equal(got, again)
+    assert not got[M.n_rows:].any() and not got[:bs].any()
+    assert not got[3 * bs:4 * bs].any() and not got[M.n_rows - bs:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_node_groups_stream_tables_larger_than_l2(cuda, dtype):
+    """Random tables of K = 27 slots, bs 3, larger than the card's L2 (as
+    the fine elasticity level's, which the node groups stream; node rows
+    of random lengths), against the plain version, the same bits twice,
+    in node-group shapes of 1, 4 and 32 lanes."""
+    from sparsh_amg_tpu_torch.ops.block_ell import block_ell_plain
+    k, bs = 27, 3
+    esize = torch.finfo(dtype).bits // 8
+    l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
+    nb = l2 // (k * bs * bs * esize) * 5 // 4 + 3
+    n_pad = -(-nb * bs // 2048) * 2048
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cols = torch.randint(0, nb, (k, nb), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    lens = torch.randint(1, k + 1, (nb,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    vals = torch.randn(k, bs, n_pad, generator=gen, device=cuda).to(dtype)
+    # the layout's padding: slots past a node row's length hold col 0 and
+    # a zero block, and so do the rows past n
+    pad = torch.arange(k, device=cuda)[:, None] >= lens[None, :]
+    cols[pad] = 0
+    vals[:, :, : nb * bs] *= ~pad.repeat_interleave(bs, dim=1)[:, None, :]
+    vals[:, :, nb * bs:] = 0
+    assert vals.nbytes + cols.nbytes > l2
+    x = torch.randn(n_pad, generator=gen, device=cuda)
+    want = block_ell_plain(cols, vals, x, lens)
+    for t in (1, 4, 32):
+        got = _block_spmv(cols, vals, lens, x, ("wide", t, 1, 1))
+        again = _block_spmv(cols, vals, lens, x, ("wide", t, 1, 1))
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5, t
+        assert torch.equal(got, again) and not got[nb * bs:].any()
+
+
+def test_block_chooser_on_the_card(cuda):
+    """The wrapper's default shape is choose_block's with this card's
+    limits, cached, and holds under graph capture."""
+    from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_spmv,
+                                                    block_shape,
+                                                    csr_to_block_ell)
+    from sparsh_amg_tpu_torch.ops.split_rows import choose_block, limits
+    M = csr_to_block_ell(_holed_blocks(701, 3, 1, 0.02), 3, device=cuda)
+    assert block_shape(M.cols, M.vals) == choose_block(
+        M.cols.shape[1], 3, M.k, 4, limits(cuda))
+    x = _vec(np.random.default_rng(1), M.n_pad, cuda)
+    want = block_ell_spmv(M.cols, M.vals, M.lens, x)
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        block_ell_spmv(M.cols, M.vals, M.lens, x)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        y = block_ell_spmv(M.cols, M.vals, M.lens, x)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+def test_block_graph_ms_times_the_card(cuda):
+    from sparsh_amg_tpu_torch.ops.block_ell import csr_to_block_ell
+    from sparsh_amg_tpu_torch.utils.timing import graph_ms
+    M = csr_to_block_ell(_holed_blocks(701, 3, 1, 0.02), 3, device=cuda)
+    x = _vec(np.random.default_rng(1), M.n_pad, cuda)
+    ms = graph_ms(lambda: M.spmv(x), launches=4, runs=3)
+    assert 0 < ms < 10
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs", [2, 3, 6])
 def test_block_kernel_matches_plain(cuda, bs, dtype):
@@ -336,21 +473,27 @@ def test_ell_kernel_long_rows(cuda, shape, dtype):
     assert not got[E.n_rows:].any()
 
 
+@pytest.mark.parametrize("launch", [None, (1, 1, 1, 1), ("wide", 8, 1, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", LONG_BLOCK)
 @pytest.mark.parametrize("bs", [2, 3, 6])
-def test_block_kernel_long_rows(cuda, bs, shape, dtype):
+def test_block_kernel_long_rows(cuda, bs, shape, dtype, launch):
+    """The chooser's launch (split rows: these rows leave most of the
+    card idle), one thread per dof row and node groups of long rows,
+    against the plain version."""
     from sparsh_amg_tpu_torch.ops.block_ell import (block_ell_plain,
-                                                    block_ell_spmv,
+                                                    block_shape,
                                                     csr_to_block_ell)
-    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
     from sparsh_amg_tpu_torch.systems import random_long_rows
     A = random_long_rows(*shape, seed=6, bs=bs)
     M = csr_to_block_ell(A, bs, dtype, device=cuda)
-    assert M.k == shape[2] and launch_shape(M.n_rows, M.k, cuda) != (1, 1)
+    assert M.k == shape[2]
+    if launch is None:
+        w, t, g, s = block_shape(M.cols, M.vals)
+        assert (w, t) == (1, 1) and g * s > 1
     x = _vec(np.random.default_rng(3), max(M.n_pad, M.n_cols), cuda)
-    got = block_ell_spmv(M.cols, M.vals, M.lens, x)
-    again = block_ell_spmv(M.cols, M.vals, M.lens, x)
+    got = _block_spmv(M.cols, M.vals, M.lens, x, launch)
+    again = _block_spmv(M.cols, M.vals, M.lens, x, launch)
     torch.cuda.synchronize()
     assert _rel(got, block_ell_plain(M.cols, M.vals, x)) <= 1e-5
     assert torch.equal(got, again)
