@@ -1,0 +1,8 @@
+"""device_peak_gib: torch.cuda.max_memory_reserved() over the window,
+after a reset just before it, in GiB: what the card holds, CUDA graph
+pools included.  Not read off the card."""
+
+
+def read(record):
+    peak = record["device_peak_bytes"]
+    return peak / 2 ** 30 if peak else None
