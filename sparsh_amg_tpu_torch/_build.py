@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 
+from .utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -58,6 +60,8 @@ _ENTRIES = {
     # csrc/graph_loop.cu.  rr, k, brk (or None), target, budget, prog, go,
     # stream
     "loop_guard_launch": [_p, _p, _p, _p, _p, _p, _p, _p],
+    # buf (int64 (2 cap + 1,)), cap, slot, reset, stream
+    "trace_stamp_launch": [_p, _i, _i, _i, _p],
     # heads (void*[]), n_heads, body, tails (void*[]), n_tails, rr, k, brk,
     # target, budget, prog, exec_out (void**), msg, msg_len, stream
     "pass_graph_create": [_p, _i, _p, _p, _i, _p, _p, _p, _p, _p, _p, _p,
@@ -119,6 +123,7 @@ def build() -> str:
 def _run(cmds: list) -> None:
     """Run the commands side by side; raise with the output of the first
     that fails."""
+    trace.count("build.compiles", len(cmds))
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -142,7 +147,8 @@ def lib() -> ctypes.CDLL:
         return _LIB
     with _LOCK:
         if _LIB is None:
-            handle = ctypes.CDLL(build())
+            with trace.span("build.kernels", kind="cuda"):
+                handle = ctypes.CDLL(build())
             for name, argtypes in _ENTRIES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes

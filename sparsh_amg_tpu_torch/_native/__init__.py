@@ -15,6 +15,8 @@ import threading
 
 import numpy as np
 
+from ..utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "amg_core.cpp")
 _LOCK = threading.Lock()
@@ -46,6 +48,7 @@ def _compile() -> str | None:
         "g++", "-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC",
         "-march=native", _SRC, "-o", tmp,
     ]
+    trace.count("build.compiles")
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=240)
         os.replace(tmp, so)
@@ -63,7 +66,8 @@ def get_lib():
     with _LOCK:
         if _TRIED:
             return _LIB
-        so = _compile()
+        with trace.span("build.kernels", kind="native"):
+            so = _compile()
         if so is None:
             _TRIED = True
             return None

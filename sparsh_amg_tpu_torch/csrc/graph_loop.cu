@@ -45,6 +45,14 @@
 // collective also brings an event wait node and event record nodes, and
 // instantiation refuses the body (cudaGraphNodeTypeWaitEvent).
 //
+// trace_stamp is the tracer's (utils/trace.py): when tracing is on at
+// capture, the step graph holds one of these one-thread kernels at the
+// step's start and end and at the entry and return of each level's visit,
+// so the WHILE body's device time splits by level, where neither CUDA
+// events nor torch.profiler reach.  Each reads the global timer (ns) and
+// adds the time since the previous stamp to its slot.  Stamps run in
+// stream order inside one captured chain, so one thread and no atomics.
+//
 // The step updates the Krylov state in place (solve/krylov.py::
 // step_inplace): a functional step's copy of each vector back into the
 // state per iteration cost the flagship 0.097 ms an iteration; in place,
@@ -75,6 +83,18 @@ __global__ void loop_guard(const float* rr, const int* k, const bool* brk,
     prog[2] = broken ? 1.0 : 0.0;
     if (go != nullptr) *go = more ? 1 : 0;
     if (set_handle) cudaGraphSetConditional(handle, more ? 1u : 0u);
+}
+
+// buf: acc[cap] (ns), cnt[cap], last; a reset stamp only sets last.
+__global__ void trace_stamp(unsigned long long* buf, int cap, int slot,
+                            int reset) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (!reset) {
+        buf[slot] += now - buf[2 * cap];
+        buf[cap + slot] += 1;
+    }
+    buf[2 * cap] = now;
 }
 
 struct Guard {
@@ -169,6 +189,14 @@ extern "C" int loop_guard_launch(const void* rr, const void* k,
         static_cast<const bool*>(brk), static_cast<const double*>(target),
         static_cast<const double*>(budget), static_cast<double*>(prog),
         static_cast<int*>(go), 0, 0);
+    return cudaGetLastError();
+}
+
+// One stamp (see trace_stamp) on `stream`; captured like any launch.
+extern "C" int trace_stamp_launch(void* buf, int cap, int slot, int reset,
+                                  void* stream) {
+    trace_stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<unsigned long long*>(buf), cap, slot, reset);
     return cudaGetLastError();
 }
 

@@ -3,12 +3,15 @@
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper; each counts its launches in ``launches``
-    (the loop guard of the device loop mode's pass graphs included)."""
+    (the loop guard of the device loop mode's pass graphs and the
+    tracer's stamp included)."""
     from ..solve.graphs import loop_guard
+    from ..utils.trace import trace_stamp
     from . import dia_spmv
     from .block_ell import block_ell_spmv
     from .ell_spmv import ell_spmv
-    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, loop_guard)
+    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, loop_guard,
+            trace_stamp)
 
 
 def counted(fn):

@@ -35,7 +35,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .formats import _round_up
+from .formats import _round_up, _upload
 from .split_rows import block_launch_shape
 
 VAL_DTYPES = (torch.float32, torch.bfloat16)
@@ -228,6 +228,6 @@ def csr_to_block_ell(A: sp.csr_matrix, bs: int, dtype=torch.float32,
         n_pad = _round_up(max(n, 1), 2048)
     cols, vals, lens = block_ell_tables(A, bs, n_pad)
     return BlockEllMatrix(
-        cols=torch.from_numpy(cols).to(device),
-        vals=torch.from_numpy(vals).to(device=device, dtype=dtype),
-        lens=torch.from_numpy(lens).to(device), n_rows=n, n_cols=m)
+        cols=_upload(cols, device, torch.int32),
+        vals=_upload(vals, device, dtype),
+        lens=_upload(lens, device, torch.int32), n_rows=n, n_cols=m)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .._native import csr_arrays, get_lib
+from ..utils import trace
 from .dia_spmv import dia_residual, dia_spmv
 from .ell_spmv import ell_spmv
 from .split_rows import choose_lanes
@@ -145,8 +146,13 @@ def residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _upload(a: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                        dtype=dtype)
+    """The one host-to-device copy of the freeze (span ``freeze.upload``,
+    its bytes counted in ``freeze.upload_bytes``)."""
+    with trace.span("freeze.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                         dtype=dtype)
+    trace.count("freeze.upload_bytes", t.numel() * t.element_size())
+    return t
 
 
 def dia_offsets(A: sp.csr_matrix, dia_max_bands: int):

@@ -12,6 +12,8 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.sparse import csgraph
 
+from ..utils import trace
+
 
 def bandwidth(A: sp.csr_matrix) -> int:
     if A.nnz == 0:
@@ -34,12 +36,14 @@ def rcm_permutation(A: sp.csr_matrix) -> np.ndarray:
         csgraph.reverse_cuthill_mckee(A.tocsr(), symmetric_mode=True))
 
 
+@trace.spanned("setup.reorder")
 def maybe_reorder(A: sp.csr_matrix, mode: str = "auto",
                   target_frac: float = 0.15):
     """Return (A_permuted, perm or None).
 
     mode "rcm" always permutes; "auto" permutes only when the bandwidth
     exceeds target_frac * n AND RCM actually improves it; "none" never.
+    Traced as the span ``setup.reorder``.
     """
     if mode == "none":
         return A, None

@@ -1,17 +1,24 @@
 """Multigrid cycles (the port of ``sparsh_amg_tpu/solve/cycles.py``):
-V, W and F, recursing over the hierarchy exactly as the reference does."""
+V, W and F, recursing over the hierarchy exactly as the reference does.
+Each visit to a level is bracketed by the tracer's ``enter[l]`` and
+``leave[l]`` stamps (``utils/trace.py``; nothing outside its stamped
+step or while tracing is off)."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.formats import residual, spmv
+from ..utils import trace
 from .smoothers import smooth
 
 
 def _cycle(levels, l, b, x, params, shape):
+    trace.stamp("enter", l)
     lev = levels[l]
     if lev.P is None or l == len(levels) - 1:
-        return lev.coarse_solve(b)
+        x = lev.coarse_solve(b)
+        trace.stamp("leave", l)
+        return x
     # pre-smooth (x may be a known-zero start)
     zero0 = x is None
     coarse = l >= params.cheby_coarse_from
@@ -33,6 +40,7 @@ def _cycle(levels, l, b, x, params, shape):
     x = x + spmv(lev.P, ec)
     x = smooth(lev, b, x, params, zero_start=False, sweeps=params.nu2,
                backward=True, coarse=coarse)
+    trace.stamp("leave", l)
     return x
 
 

@@ -20,9 +20,11 @@ import torch.nn.functional as F
 from .._native import csr_arrays, get_lib
 from ..ops.block_ell import BlockEllMatrix, csr_to_block_ell
 from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, _round_up,
-                           csr_to_dense, csr_to_device, csr_to_ell, pack_ell)
+                           _upload, csr_to_dense, csr_to_device, csr_to_ell,
+                           pack_ell)
 from ..params import AMGParams
 from ..setup.hierarchy import Hierarchy
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,103 +175,114 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None, dtype=None,
     fine_hi: optionally the fp32 fine-level DiaMatrix already on the device
     (the Krylov operator).  When its layout matches what csr_to_device
     would build, the fine band_dtype operator is derived by casting its
-    bands on the device instead of uploading the matrix again."""
+    bands on the device instead of uploading the matrix again.  Traced as
+    one span ``freeze.level`` a level."""
     params = params or hier.params
     dtype = _torch_dtype(dtype or params.dtype)
     bdtype = _torch_dtype(params.band_dtype)
     levels = []
-    for li, lev in enumerate(hier.levels):
-        A = lev.A
-        n = A.shape[0]
-        is_coarsest = li == len(hier.levels) - 1 or lev.P is None
-        fine_reuse = (li == 0 and isinstance(fine_hi, DiaMatrix)
-                      and fine_hi.n_rows == n and not is_coarsest
-                      and n > params.dense_size
-                      and fine_hi.n_pad == _round_up(max(n, 1), 2048))
-        bs = getattr(lev, "bs", 1)
-        dev_A = None
-        if fine_reuse:
-            dev_A = fine_hi if fine_hi.bands.dtype == bdtype else \
-                dataclasses.replace(fine_hi, bands=fine_hi.bands.to(bdtype))
-        elif bs > 1 and n > params.dense_size:
-            # systems level (bs dofs per node): bs x bs blocks over the
-            # node pattern, or None and scalar ELL-T below
-            dev_A = csr_to_block_ell(A, bs, bdtype,
-                                     n_pad=_round_up(max(n, 1), 2048),
-                                     device=device)
-        if dev_A is None:
-            dev_A = csr_to_device(A, dtype=bdtype,
-                                  prefer_dia=params.prefer_dia,
-                                  dia_max_bands=params.dia_max_bands,
-                                  dense_size=params.dense_size,
-                                  pad_multiple=2048, device=device)
-        n_pad = dev_A.n_pad
-        # l1_dinv only feeds the l1-Jacobi smoother and the no-inverse
-        # coarse fallback
-        need_l1 = params.smoother in ("l1jacobi", "gs2") or is_coarsest
-        if (fine_reuse and 0 in fine_hi.offsets and n > _POWER_MAX_N
-                and params.lambda_max != "power" and dtype == torch.float32):
-            # smoother diagonals + Gershgorin bound from the uploaded fp32
-            # bands; above _POWER_MAX_N the hybrid estimate is Gershgorin
+    for li in range(len(hier.levels)):
+        with trace.span("freeze.level", level=li):
+            levels.append(_freeze_level(hier, li, params, dtype, bdtype,
+                                        fine_hi, device))
+    return DeviceHierarchy(levels=tuple(levels))
+
+
+def _freeze_level(hier: Hierarchy, li: int, params: AMGParams, dtype,
+                  bdtype, fine_hi, device) -> DeviceLevel:
+    lev = hier.levels[li]
+    A = lev.A
+    n = A.shape[0]
+    is_coarsest = li == len(hier.levels) - 1 or lev.P is None
+    fine_reuse = (li == 0 and isinstance(fine_hi, DiaMatrix)
+                  and fine_hi.n_rows == n and not is_coarsest
+                  and n > params.dense_size
+                  and fine_hi.n_pad == _round_up(max(n, 1), 2048))
+    bs = getattr(lev, "bs", 1)
+    dev_A = None
+    if fine_reuse:
+        dev_A = fine_hi if fine_hi.bands.dtype == bdtype else \
+            dataclasses.replace(fine_hi, bands=fine_hi.bands.to(bdtype))
+    elif bs > 1 and n > params.dense_size:
+        # systems level (bs dofs per node): bs x bs blocks over the
+        # node pattern, or None and scalar ELL-T below
+        dev_A = csr_to_block_ell(A, bs, bdtype,
+                                 n_pad=_round_up(max(n, 1), 2048),
+                                 device=device)
+    if dev_A is None:
+        dev_A = csr_to_device(A, dtype=bdtype,
+                              prefer_dia=params.prefer_dia,
+                              dia_max_bands=params.dia_max_bands,
+                              dense_size=params.dense_size,
+                              pad_multiple=2048, device=device)
+    n_pad = dev_A.n_pad
+    # l1_dinv only feeds the l1-Jacobi smoother and the no-inverse
+    # coarse fallback
+    need_l1 = params.smoother in ("l1jacobi", "gs2") or is_coarsest
+    if (fine_reuse and 0 in fine_hi.offsets and n > _POWER_MAX_N
+            and params.lambda_max != "power" and dtype == torch.float32):
+        # smoother diagonals + Gershgorin bound from the uploaded fp32
+        # bands; above _POWER_MAX_N the hybrid estimate is Gershgorin
+        with trace.span("freeze.lambda_max"):
             dinv_t, l1_dinv_t, lam_t = _dia_diag_stats(
                 fine_hi.bands, fine_hi.offsets.index(0))
             lam = lam_t.item()
-            if not need_l1:
-                l1_dinv_t = None
-        else:
-            d = A.diagonal()
-            dinv = np.zeros(n_pad)
-            dinv[:n] = np.where(d != 0, 1.0 / d, 0.0)
-            absrow = abs_row_sum(A)
+        if not need_l1:
+            l1_dinv_t = None
+    else:
+        d = A.diagonal()
+        dinv = np.zeros(n_pad)
+        dinv[:n] = np.where(d != 0, 1.0 / d, 0.0)
+        absrow = abs_row_sum(A)
+        with trace.span("freeze.lambda_max"):
             lam = lambda_max_estimate(A, d, absrow, params.lambda_max) \
                 if not is_coarsest or n > 1 else 1.0
-            dinv_t = torch.from_numpy(dinv).to(device=device, dtype=dtype)
-            l1_dinv_t = None
-            if need_l1:
-                l1d = d + (absrow - np.abs(d))
-                l1_dinv = np.zeros(n_pad)
-                l1_dinv[:n] = np.where(l1d != 0, 1.0 / l1d, 0.0)
-                l1_dinv_t = torch.from_numpy(l1_dinv).to(device=device,
-                                                         dtype=dtype)
+        dinv_t = _upload(dinv, device, dtype)
+        l1_dinv_t = None
+        if need_l1:
+            l1d = d + (absrow - np.abs(d))
+            l1_dinv = np.zeros(n_pad)
+            l1_dinv[:n] = np.where(l1d != 0, 1.0 / l1d, 0.0)
+            l1_dinv_t = _upload(l1_dinv, device, dtype)
 
-        P = R = coarse_inv = None
-        if not is_coarsest:
-            nc = lev.P.shape[1]
-            if max(n, nc) <= params.dense_size:
-                P = csr_to_dense(lev.P, dtype=bdtype, pad_multiple=2048,
-                                 device=device)
-                R = csr_to_dense(lev.R, dtype=bdtype, pad_multiple=2048,
-                                 device=device)
-            else:
-                P = csr_to_ell(lev.P.tocsr(), dtype=bdtype, pad_multiple=2048,
-                               device=device)
-                R = csr_to_ell(lev.R.tocsr(), dtype=bdtype, pad_multiple=2048,
-                               device=device)
-        elif n <= params.coarse_inv_max and params.coarse_solver != "smooth":
+    P = R = coarse_inv = None
+    if not is_coarsest:
+        nc = lev.P.shape[1]
+        if max(n, nc) <= params.dense_size:
+            P = csr_to_dense(lev.P, dtype=bdtype, pad_multiple=2048,
+                             device=device)
+            R = csr_to_dense(lev.R, dtype=bdtype, pad_multiple=2048,
+                             device=device)
+        else:
+            P = csr_to_ell(lev.P.tocsr(), dtype=bdtype, pad_multiple=2048,
+                           device=device)
+            R = csr_to_ell(lev.R.tocsr(), dtype=bdtype, pad_multiple=2048,
+                           device=device)
+    elif n <= params.coarse_inv_max and params.coarse_solver != "smooth":
+        with trace.span("freeze.coarse_inverse"):
             r = min(_round_up(max(n, 1), 256), n_pad)
             dense = np.zeros((r, r), dtype=np.float32)
             dense[:n, :n] = dense_inverse(A, params.coarse_solver)
-            # fp32 always, not band_dtype: the coarse solve anchors the cycle
-            coarse_inv = torch.from_numpy(dense).to(device=device,
-                                                    dtype=dtype)
+            # fp32 always, not band_dtype: the coarse solve anchors the
+            # cycle
+            coarse_inv = _upload(dense, device, dtype)
 
-        L = U = None
-        if params.smoother == "gs2" and coarse_inv is None:
-            # each triangle in the layout csr_to_device picks for it: DIA
-            # tables with one-sided offsets on stencil levels
-            conv = lambda T: csr_to_device(
-                T.tocsr(), dtype=bdtype, prefer_dia=params.prefer_dia,
-                dia_max_bands=params.dia_max_bands,
-                dense_size=params.dense_size, pad_multiple=2048,
-                device=device)
-            L = conv(sp.tril(A, -1))
-            U = conv(sp.triu(A, 1))
+    L = U = None
+    if params.smoother == "gs2" and coarse_inv is None:
+        # each triangle in the layout csr_to_device picks for it: DIA
+        # tables with one-sided offsets on stencil levels
+        conv = lambda T: csr_to_device(
+            T.tocsr(), dtype=bdtype, prefer_dia=params.prefer_dia,
+            dia_max_bands=params.dia_max_bands,
+            dense_size=params.dense_size, pad_multiple=2048,
+            device=device)
+        L = conv(sp.tril(A, -1))
+        U = conv(sp.triu(A, 1))
 
-        levels.append(DeviceLevel(
-            A=dev_A, dinv=dinv_t, l1_dinv=l1_dinv_t, lam_max=_f32(lam),
-            P=P, R=R, coarse_inv=coarse_inv, n=n,
-            coarse_sweeps=params.coarse_smooth_sweeps, L=L, U=U))
-    return DeviceHierarchy(levels=tuple(levels))
+    return DeviceLevel(
+        A=dev_A, dinv=dinv_t, l1_dinv=l1_dinv_t, lam_max=_f32(lam),
+        P=P, R=R, coarse_inv=coarse_inv, n=n,
+        coarse_sweeps=params.coarse_smooth_sweeps, L=L, U=U)
 
 
 # ---------------------------------------------------------------------------

@@ -29,11 +29,11 @@ graph adds its step graph's count once per iteration it ran).
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
 from ..ops import kernel_wrappers
+from ..utils import trace
 from .krylov import READS, loop_active, loop_record
 
 
@@ -68,10 +68,10 @@ class ChunkGraph:
         # keep_graph: the cudaGraph_t stays readable (raw_cuda_graph) for
         # the pass graphs that take this graph as a child
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=pool):
-            self._body()
-        self.capture_s = time.perf_counter() - t0
+        with trace.timed("graphs.capture") as t:
+            with torch.cuda.graph(graph, pool=pool):
+                self._body()
+        self.capture_s = t.seconds
         for w, n in zip(wrappers, before):
             if w.launches != n:
                 self.per_replay[w] = w.launches - n
@@ -103,9 +103,9 @@ class ChunkGraph:
     def instantiate(self) -> None:
         """Instantiate the captured graph for replay (once)."""
         if self.graph is not None and not self._instantiated:
-            t0 = time.perf_counter()
-            self.graph.instantiate()
-            self.instantiate_s = time.perf_counter() - t0
+            with trace.timed("graphs.instantiate") as t:
+                self.graph.instantiate()
+            self.instantiate_s = t.seconds
             self._instantiated = True
 
     def run(self) -> None:
@@ -223,12 +223,14 @@ class PassGraph:
             self.method, self.state, self.guard, self.prog)]
         out = ctypes.c_void_p()
         msg = ctypes.create_string_buffer(512)
-        t0 = time.perf_counter()
-        rc = lib.pass_graph_create(
-            ctypes.addressof(heads), len(self.heads), self.step.raw(),
-            ctypes.addressof(tails), len(self.tails), *ptrs,
-            ctypes.addressof(out), ctypes.addressof(msg), len(msg),
-            torch.cuda.current_stream(self.prog.device).cuda_stream)
+        with trace.timed("graphs.pass_build") as t:
+            rc = lib.pass_graph_create(
+                ctypes.addressof(heads), len(self.heads), self.step.raw(),
+                ctypes.addressof(tails), len(self.tails), *ptrs,
+                ctypes.addressof(out), ctypes.addressof(msg), len(msg),
+                torch.cuda.current_stream(self.prog.device).cuda_stream)
+            if rc == 0:
+                torch.cuda.synchronize(self.prog.device)
         if rc != 0:
             kinds = {"start": [g.node_kinds() for g in self.heads],
                      "step": self.step.node_kinds(),
@@ -243,8 +245,7 @@ class PassGraph:
             raise RuntimeError(f"pass graph (a CUDA graph WHILE node) not "
                                f"built: {msg.value.decode()}; the captured "
                                f"parts' nodes: {kinds}{hint}")
-        torch.cuda.synchronize(self.prog.device)
-        self.build_s = time.perf_counter() - t0
+        self.build_s = t.seconds
         self.exec, self._lib = out.value, lib
 
     def launch(self) -> None:
@@ -267,11 +268,14 @@ class PassGraph:
                 g.run()
             return self.prog.tolist(), reads + 1
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        self.launch()
-        ev[1].record()
-        prog = self.prog.tolist()
+        with trace.span("solve.launch"):
+            ev[0].record()
+            self.launch()
+            ev[1].record()
+        with trace.span("solve.read"):
+            prog = self.prog.tolist()
         self.device_ms = ev[0].elapsed_time(ev[1])
+        trace.note_events("pass_graph", *ev)
         iters = int(prog[1])
         for g in (*self.heads, *self.tails):
             g.count()

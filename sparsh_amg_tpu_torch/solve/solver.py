@@ -49,6 +49,7 @@ from ..ops.fp64 import csr_to_fp64, residual64, to_fp32
 from ..params import AMGParams, KrylovParams
 from ..setup.hierarchy import Hierarchy, amg_setup
 from ..setup.reorder import maybe_reorder
+from ..utils import trace
 from ..utils.logging import get_logger, iteration_log
 from .cycles import make_cycle
 from .device import DeviceHierarchy, _torch_dtype, to_device
@@ -163,12 +164,14 @@ class _Loop:
     def replay(self, g: ChunkGraph) -> None:
         """Launch one of the loop's graphs (host mode); the host reads
         prog (``read``) before it issues anything but more launches."""
-        g.run()
+        with trace.span("solve.launch"):
+            g.run()
         self.unread = True
 
     def read(self, t: torch.Tensor):
         """Read `t` (of prog) on the host, after every launch before it."""
-        out = t.tolist()
+        with trace.span("solve.read"):
+            out = t.tolist()
         self.unread = False
         return out
 
@@ -184,7 +187,9 @@ class _Loop:
         return torch.cat((loop_record(self.method, state), rr0.reshape(1)))
 
     def _step_fn(self, bufs):
-        self._step(self.state)
+        # the tracer's stamps, when it is on while the step is captured
+        with trace.stamping(self.b.device):
+            self._step(self.state)
         return ()
 
     def _steps_fn(self, k: int):
@@ -205,7 +210,8 @@ class _Loop:
     def set_limits(self, tol: float, budget: int) -> None:
         """tol^2 and the budget of the next pass: one copy to the device."""
         self._limits_host[0], self._limits_host[1] = tol * tol, budget
-        self.limits.copy_(self._limits_host, non_blocking=True)
+        with trace.device_op("solve.limits", self.limits.device):
+            self.limits.copy_(self._limits_host, non_blocking=True)
 
     def chunk(self, k: int) -> ChunkGraph:
         """The host mode's chunk of k steps, captured and instantiated on
@@ -336,13 +342,20 @@ class AMGSolver:
                 nullspace = np.asarray(nullspace)[self.perm]
         self.hierarchy: Hierarchy = hierarchy or amg_setup(
             A, self.params, nullspace=nullspace)
+        self._freeze(A)
+        self.setup_time = time.perf_counter() - t0
+
+    @trace.spanned("freeze")
+    def _freeze(self, A: sp.csr_matrix) -> None:
+        """The fine operators and the hierarchy on the device."""
         # fp64 fine operator for the refinement residuals, uploaded once;
         # the fp32 Krylov operator and the band_dtype cycle operator are
         # cast from it on the device
-        self.A64 = csr_to_fp64(A, prefer_dia=self.params.prefer_dia,
-                               dia_max_bands=self.params.dia_max_bands,
-                               device=self.torch_device)
-        self.A32 = to_fp32(self.A64)
+        with trace.span("freeze.fine"):
+            self.A64 = csr_to_fp64(A, prefer_dia=self.params.prefer_dia,
+                                   dia_max_bands=self.params.dia_max_bands,
+                                   device=self.torch_device)
+            self.A32 = to_fp32(self.A64)
         self.device: DeviceHierarchy = to_device(
             self.hierarchy, self.params, fine_hi=self.A32,
             device=self.torch_device)
@@ -366,7 +379,6 @@ class AMGSolver:
         self._reset_loop_state()
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
-        self.setup_time = time.perf_counter() - t0
 
     def device_bytes(self) -> int:
         """Persistent device footprint: frozen hierarchy + fp64 and fp32
@@ -410,6 +422,7 @@ class AMGSolver:
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
 
+    @trace.spanned("warm")
     def warm(self) -> None:
         """Capture every graph the configured loop mode can replay (the
         start, step and finish; the host mode's main chunk, the ladder 1,
@@ -427,9 +440,10 @@ class AMGSolver:
             for k in chunk_sizes(self.krylov.chunk):
                 loop.chunk(k)
         rho2 = self._rho2_est
-        loop.b64.copy_(self.prepare_rhs(np.ones(self.n)).b)
-        for first in (True, False):
-            self._pass(loop, first, 1e-1, self.krylov.maxiter)
+        with trace.span("warm.passes"):
+            loop.b64.copy_(self.prepare_rhs(np.ones(self.n)).b)
+            for first in (True, False):
+                self._pass(loop, first, 1e-1, self.krylov.maxiter)
         self._rho2_est = rho2
 
     def _first_chunk(self, itol: float, first_pass: bool) -> int:
@@ -552,6 +566,8 @@ class AMGSolver:
         return DeviceRhs(torch.from_numpy(bpad).to(self.torch_device),
                          float(np.linalg.norm(bpad)))
 
+    @trace.spanned("solve", lambda r: {"passes": r.refine_passes,
+                                       "iterations": r.iterations})
     def solve(self, b: np.ndarray | DeviceRhs, tol: float | None = None,
               maxiter: int | None = None) -> SolveResult:
         kr = self.krylov
@@ -564,9 +580,11 @@ class AMGSolver:
         if bnorm == 0.0:
             return SolveResult(np.zeros(self.n), True, 0.0, 0, 0,
                                self.setup_time, 0.0, [])
-        loop = self._loop()
-        loop.b64.copy_(b.b)
-        loop.pass_ms = []
+        with trace.span("solve.prologue"):
+            loop = self._loop()
+            with trace.device_op("solve.rhs_copy", loop.b64.device):
+                loop.b64.copy_(b.b)
+            loop.pass_ms = []
         history = []
         total_iters = passes = steps = reads = 0
         converged = False
@@ -577,7 +595,9 @@ class AMGSolver:
             if budget <= 0:
                 break
             itol = self._pass_tol(tol, relres) if kr.refine else tol
-            iters, rnsq, k, r = self._pass(loop, passes == 0, itol, budget)
+            with trace.span("solve.pass"):
+                iters, rnsq, k, r = self._pass(loop, passes == 0, itol,
+                                               budget)
             steps += k
             reads += r
             passes += 1
@@ -591,12 +611,14 @@ class AMGSolver:
             if relres <= tol:
                 converged = True
                 break
-        # the loop's buffers belong to the next solve: keep a copy
-        x = loop.x64.clone()
-        return SolveResult(self._fetch(x), converged, relres, total_iters,
-                           passes, self.setup_time, time.perf_counter() - t0,
-                           history, steps - total_iters, reads,
-                           loop.pass_ms)
+        with trace.span("solve.epilogue"):
+            # the loop's buffers belong to the next solve: keep a copy
+            with trace.device_op("solve.x_clone", loop.x64.device):
+                x = loop.x64.clone()
+            return SolveResult(self._fetch(x), converged, relres,
+                               total_iters, passes, self.setup_time,
+                               time.perf_counter() - t0, history,
+                               steps - total_iters, reads, loop.pass_ms)
 
 
 def solve(A: sp.csr_matrix, b: np.ndarray, params: AMGParams | None = None,

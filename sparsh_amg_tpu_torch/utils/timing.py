@@ -1,6 +1,5 @@
-"""Phase timers and op benchmarking (the port of
-``sparsh_amg_tpu/utils/timing.py``): wall-clock per phase, and the median
-time of one op, between CUDA events on the card or by ``perf_counter``
+"""Op benchmarking (the port of ``sparsh_amg_tpu/utils/timing.py``): the
+median time of one op, between CUDA events on the card or by ``perf_counter``
 with a synchronize elsewhere, and the dispatch round-trip probe
 (``measure_dispatch_rtt``) behind ``resolve_loop_mode``, which places the
 Krylov loop for ``KrylovParams(loop_mode="auto")``.
@@ -17,7 +16,6 @@ from __future__ import annotations
 
 import statistics
 import time
-from contextlib import contextmanager
 
 import torch
 
@@ -122,29 +120,6 @@ def copy_bandwidth(device, runs: int = 5, reps: int = 10) -> float:
         samples.append(e0.elapsed_time(e1) / 1e3 / reps)
     del x, y
     return 2 * n * 4 / statistics.median(samples)
-
-
-class Timer:
-    """Accumulating named phase timer."""
-
-    def __init__(self):
-        self.times: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.times[name] = self.times.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        return "\n".join(
-            f"{k:>24s}: {v:9.4f}s  (x{self.counts[k]})"
-            for k, v in sorted(self.times.items()))
 
 
 def _tensors(out):

@@ -875,3 +875,101 @@ def test_cli_host_mode_chunk_12_on_the_card(capsys):
     assert printed == json.loads(json.dumps(out))
     assert out["converged"] and out["relres"] <= 1e-8 and \
         out["refine_passes"] >= 1
+
+
+# --------------------------------------------------------------------------
+# the tracer (utils/trace.py): stamps in captured graphs, anchors
+# --------------------------------------------------------------------------
+
+def _trace_solver(cuda):
+    from sparsh_amg_tpu_torch.models import poisson2d
+    from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
+    from sparsh_amg_tpu_torch.solve.solver import AMGSolver
+    A = poisson2d(32)
+    s = AMGSolver(A, AMGParams(coarse_size=40),
+                  KrylovParams(loop_mode="device"), device=cuda)
+    return s, np.random.default_rng(0).standard_normal(A.shape[0])
+
+
+def _step_kinds(cuda):
+    s, _ = _trace_solver(cuda)
+    s.warm()
+    kinds = s._loop().step.node_kinds()
+    s.release_graphs()
+    return kinds, len(s.device.levels)
+
+
+def test_trace_graphs_captured_off_hold_no_stamp(cuda):
+    """A step graph captured with tracing off has the same nodes whether
+    or not tracing was on earlier in the process; captured with it on it
+    holds 2 L + 2 more kernel nodes, the stamps."""
+    from sparsh_amg_tpu_torch.utils import trace
+    trace.disable()
+    off, L = _step_kinds(cuda)
+    trace.enable()
+    try:
+        on, _ = _step_kinds(cuda)
+    finally:
+        trace.disable()
+        trace.reset()
+    again, _ = _step_kinds(cuda)
+    assert again == off
+    assert on["kernel"] == off["kernel"] + 2 * L + 2
+    assert {k: v for k, v in on.items() if k != "kernel"} \
+        == {k: v for k, v in off.items() if k != "kernel"}
+
+
+def test_trace_stamps_run_in_the_while_body(cuda):
+    """Captured with tracing on, a solve's pass graphs run the stamps once
+    an iteration: each level slot counts the iterations, the stamped time
+    is at most the passes' device time, and solve()'s device operations
+    outside the pass graphs are timed."""
+    from sparsh_amg_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    try:
+        s, b = _trace_solver(cuda)
+        s.warm()
+        rhs = s.prepare_rhs(b)
+        trace.reset()
+        res = s.solve(rhs)
+        e = trace.export()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert res.converged and len(res.pass_ms) == res.refine_passes
+    L = len(s.device.levels)
+    assert {k: v["count"] for k, v in e["stamps"].items()} == {
+        "step.end": res.iterations,
+        **{f"{w}[{l}]": res.iterations for l in range(L)
+           for w in ("enter", "leave")}}
+    stamped = sum(v["ns"] for v in e["stamps"].values())
+    assert 0 < stamped <= sum(res.pass_ms) * 1e6
+    assert {d["name"] for d in e["device"]} == {
+        "pass_graph", "solve.rhs_copy", "solve.limits", "solve.x_clone"}
+    s.release_graphs()
+
+
+def test_trace_anchors_map_a_sleep_into_its_host_span(cuda):
+    """A device sleep between two anchors maps onto the host clock inside
+    the host span that issued and waited for it, within the anchors'
+    brackets."""
+    from sparsh_amg_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    try:
+        trace.anchor()
+        with trace.span("sleep"):
+            with trace.device_op("sleep", cuda):
+                torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+        trace.anchor()
+        e = trace.export()
+    finally:
+        trace.disable()
+        trace.reset()
+    host, dev = e["spans"][0], e["device"][0]
+    slack = max(a["bracket_ns"] for a in e["anchors"])
+    assert dev["ms"] > 1.0
+    assert host["start_ns"] - slack <= dev["start_ns"] < dev["end_ns"] \
+        <= host["end_ns"] + slack
