@@ -15,7 +15,9 @@ Phases (any failure raises, and the script exits non-zero):
      the instantiation and halo it ran, and every ELL operator of the
      hierarchy in the sliced layout it was packed in, its lanes per row
      T, slots per load V, sorting window sigma and stored/real slots
-     printed, two launches with the same bits): max errors,
+     printed, two launches with the same bits; the fp64 pass finish on
+     the flagship's and the small DIA tables, x64 and the fp32 rhs with
+     the plain version's bits, timed as CUDA graph replays): max errors,
      median device times, the least time the card could take (bound_ms
      at the data sheet's memory rate; bound_measured_ms, in the kernels
      line, at the copy rate measured at the end of the run) and the time
@@ -365,6 +367,73 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
                 flush=flush if t else None, extra=inst)
 
 
+def finish_case(tag, A64, rng, results, time_it, n_rows=None):
+    """The fp64 pass finish (ops/fp64.py::dia_finish64) on one fp64 DIA
+    table against finish64_plain: x64 and the fp32 right-hand side with
+    its bits, ||r||^2 within 1e-13 relative, two launches with the same
+    bits, the halo it stages.  Timed as CUDA graph replays (graph_ms; in
+    place, x64 moving by d a launch) beside the plain composition with
+    the copies into the loop's buffers that the finish graph made before
+    the kernel (plain_ms)."""
+    import torch
+    from sparsh_amg_tpu_torch.ops.fp64 import (dia_finish64, finish64_plain,
+                                               finish_halo)
+    from sparsh_amg_tpu_torch.utils.timing import graph_ms
+    n, dev = A64.n_pad, A64.bands.device
+    n_rows = n if n_rows is None else n_rows
+    vec = lambda scale, dt: torch.from_numpy(np.pad(
+        rng.standard_normal(n_rows) * scale, (0, n - n_rows)).astype(dt)
+        ).to(dev)
+    x64, b64, d = vec(1.0, np.float64), vec(1.0, np.float64), \
+        vec(1e-3, np.float32)
+
+    def kernel():
+        return dia_finish64(
+            A64, x64.clone(), d, b64, torch.empty(n, device=dev),
+            torch.empty(1, dtype=torch.float64, device=dev))
+    px, pr, prr = finish64_plain(A64, x64, d, b64, torch.dot)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    errs = [(got[0] - px).abs().max().item(),
+            (got[1].double() - pr.float().double()).abs().max().item()]
+    rec = {"case": f"dia_finish64 {tag} fp64 n_pad={n}",
+           "instantiation": f"halo={finish_halo(A64.offsets)}",
+           "x_same_bits": torch.equal(got[0], px),
+           "b_same_bits": torch.equal(got[1], pr.float()),
+           "rr_rel_err": abs(got[2].item() - prr.item()) / prr.item(),
+           "same_bits": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "max_abs_err": max(errs), "max_rel_err": max(
+               errs[0] / px.abs().max().item(),
+               errs[1] / pr.abs().max().item())}
+    if time_it:
+        xb, bb = x64.clone(), torch.empty(n, device=dev)
+        rrb = torch.empty(1, dtype=torch.float64, device=dev)
+
+        def plain():
+            x, r, s = finish64_plain(A64, xb, d, b64, torch.dot)
+            xb.copy_(x)
+            bb.copy_(r)
+            rrb.copy_(s)
+        rec["ms"] = rec["graph_ms"] = graph_ms(
+            lambda: dia_finish64(A64, xb, d, b64, bb, rrb))
+        rec["plain_ms"] = graph_ms(plain)
+        # each band once, x64 in and out, d and b64 in, the fp32 b out
+        nb = len(A64.offsets)
+        real, padded = (8 * nb + 32) * n_rows, (8 * nb + 32) * n
+        flops = 2 * int(torch.count_nonzero(A64.bands)) + 3 * n_rows
+        rec.update(real_bytes=real, padded_bytes=padded, flops=flops,
+                   bound_ms=real / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   TB_per_s_real=real / rec["ms"] / 1e9, l2_flushed=False,
+                   library_ms=None, library_note="none: the JAX package's "
+                   "df64 residual is plain XLA")
+    results.append(rec)
+    print(json.dumps(rec), flush=True)
+    if not (rec["x_same_bits"] and rec["b_same_bits"] and rec["same_bits"]
+            and rec["rr_rel_err"] <= 1e-13):
+        raise AssertionError(f"{rec['case']}: {rec}")
+    return rec
+
+
 def ell_case(tag, M, rng, results, time_it, same_bits=True):
     """The ELL kernel against its plain version on one packed matrix; the
     record names its lanes per row T, slots per load V, sorting window
@@ -608,7 +677,7 @@ def wrapper_of(kernel_name):
     m = re.search(r"::dia_tile<[^,]+, (\d+),", kernel_name)
     if m:
         return WRAPPERS[int(m.group(1))].__name__
-    for name in ("block_ell_spmv", "ell_spmv", "loop_guard"):
+    for name in ("block_ell_spmv", "ell_spmv", "dia_finish64", "loop_guard"):
         if f"::{name}" in kernel_name:
             return name
     return None
@@ -657,6 +726,10 @@ def device_mode_check(tag, solver, res, launches):
     assert res.host_reads == res.refine_passes, (tag, res.host_reads, res)
     assert launches["loop_guard"] == res.iterations + res.refine_passes, \
         (tag, launches["loop_guard"], res)
+    # the fp64 finish kernel on a DIA fine level, twice a pass
+    from sparsh_amg_tpu_torch.ops.formats import DiaMatrix
+    want = 2 * res.refine_passes if isinstance(solver.A64, DiaMatrix) else 0
+    assert launches["dia_finish64"] == want, (tag, launches, res)
 
 
 def loop_phase(solver, rhs, A, b):
@@ -792,6 +865,8 @@ def systems_phase(dim, rng, results, dev):
             kinds
         dia_cases("e2d L0", L0.bands, L0.offsets, rng, results,
                   time_it=True, n_rows=A.shape[0])
+        finish_case("e2d L0", solver.A64, rng, results, time_it=True,
+                    n_rows=A.shape[0])
 
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     rhs = solver.prepare_rhs(b)
@@ -1321,6 +1396,7 @@ def main(nside=192, dev="cuda"):
     from sparsh_amg_tpu_torch.systems import random_blocks
     from sparsh_amg_tpu_torch.ops.formats import (csr_to_dia, csr_to_ell,
                                                   DiaMatrix, EllMatrix)
+    from sparsh_amg_tpu_torch.ops.fp64 import csr_to_fp64
     import scipy.sparse as sp
     print(f"native setup library: {get_lib() is not None}", flush=True)
 
@@ -1334,6 +1410,9 @@ def main(nside=192, dev="cuda"):
         for tag, M in (("poisson3d(16)", poisson3d(16)), ("wide-band", W)):
             D = csr_to_dia(M, dt, 2048, device=dev)
             dia_cases(tag, D.bands, D.offsets, rng, small, time_it=False)
+            if dt == torch.float32:
+                finish_case(tag, csr_to_fp64(M, device=dev), rng, small,
+                            time_it=False)
         R = sp.random(300, 450, density=0.05, random_state=4, format="csr")
         E = sp.csr_matrix((np.array([2.0, 3.0, 4.0]),
                            (np.array([0, 0, 5]), np.array([1, 7, 3]))),
@@ -1375,6 +1454,8 @@ def main(nside=192, dev="cuda"):
               rng, flag, time_it=True, n_rows=A.shape[0])
     dia_cases("L0 cycle operator", L0.A.bands, L0.A.offsets, rng, flag,
               time_it=True, n_rows=A.shape[0])
+    finish_case("p3d L0", solver.A64, rng, flag, time_it=True,
+                n_rows=A.shape[0])
     operator_cases("", levels, rng, flag, timed={"P0", "R0", "A1"})
     guard_cases(flag, dev)
 
@@ -1516,6 +1597,10 @@ def main(nside=192, dev="cuda"):
         entry("block_ell_spmv", "block_ell_spmv.cu", ("block_ell_spmv",),
               "block_ell_spmv e3d L0 fp32",
               "sparsh_amg_tpu/ops/block_gell.py:147"),
+        # the port's own: the refinement pass's finish, plain XLA in the
+        # JAX package (no Pallas kernel)
+        entry("dia_finish64", "dia_finish64.cu", ("dia_finish64",),
+              "dia_finish64 p3d L0", "sparsh_amg_tpu/ops/df64_ops.py:136"),
         # the port's own: the condition of the JAX device mode's
         # lax.while_loop, a traced predicate there and no Pallas kernel
         entry("loop_guard", "graph_loop.cu", ("loop_guard",),

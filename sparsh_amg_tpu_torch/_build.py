@@ -45,6 +45,13 @@ _ENTRIES = {
     # tile.  No CUDA call
     "dia_instantiation": [_i, _i],
     "dia_halo": [_i, _i, _p],
+    # csrc/dia_finish64.cu.  bands (fp64), n_bands, offsets (host
+    # int[n_bands]), n_pad, x64, d, b64, b, scratch, rr, stream; n_pad:
+    # the scratch's fp64 entries; n_bands, offsets: the staged halo.  The
+    # last two make no CUDA call
+    "dia_finish64_launch": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _p],
+    "dia_finish64_scratch": [_i],
+    "dia_finish64_halo": [_i, _p],
     # val_bf16, lanes (T), vec (V), cols, vals, slice_off, slice_width,
     # perm, lens, n_slices, n_rows, n_pad, split lanes, cluster, x, y,
     # stream

@@ -3,15 +3,16 @@
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper; each counts its launches in ``launches``
-    (the loop guard of the device loop mode's pass graphs and the
-    tracer's stamp included)."""
+    (the refinement pass's fp64 finish, the loop guard of the device loop
+    mode's pass graphs and the tracer's stamp included)."""
     from ..solve.graphs import loop_guard
     from ..utils.trace import trace_stamp
     from . import dia_spmv
     from .block_ell import block_ell_spmv
     from .ell_spmv import ell_spmv
-    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, loop_guard,
-            trace_stamp)
+    from .fp64 import dia_finish64
+    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, dia_finish64,
+            loop_guard, trace_stamp)
 
 
 def counted(fn):

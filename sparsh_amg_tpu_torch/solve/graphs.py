@@ -29,6 +29,7 @@ graph adds its step graph's count once per iteration it ran).
 from __future__ import annotations
 
 import ctypes
+import gc
 
 import torch
 
@@ -60,7 +61,8 @@ class ChunkGraph:
     def _body(self) -> None:
         outs = self.fn(self.bufs)
         for buf, out in zip(self.bufs, outs, strict=True):
-            buf.copy_(out)
+            if out is not buf:          # fn may write a buffer in place
+                buf.copy_(out)
 
     def _capture(self, pool) -> None:
         wrappers = kernel_wrappers()
@@ -68,9 +70,19 @@ class ChunkGraph:
         # keep_graph: the cudaGraph_t stays readable (raw_cuda_graph) for
         # the pass graphs that take this graph as a child
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with trace.timed("graphs.capture") as t:
-            with torch.cuda.graph(graph, pool=pool):
-                self._body()
+        # the collector stays off while the stream captures: a solver
+        # dropped without release_graphs() leaves its loop and graphs as
+        # cyclic garbage, and a collection that destroyed them mid-capture
+        # would invalidate the capture (CUDA refuses it then)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with trace.timed("graphs.capture") as t:
+                with torch.cuda.graph(graph, pool=pool):
+                    self._body()
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = t.seconds
         for w, n in zip(wrappers, before):
             if w.launches != n:

@@ -45,7 +45,7 @@ import torch
 from ..ops.blas import dot as _blas_dot
 from ..ops.block_ell import BlockEllMatrix
 from ..ops.formats import EllMatrix, spmv
-from ..ops.fp64 import csr_to_fp64, residual64, to_fp32
+from ..ops.fp64 import csr_to_fp64, finish64, to_fp32
 from ..params import AMGParams, KrylovParams
 from ..setup.hierarchy import Hierarchy, amg_setup
 from ..setup.reorder import maybe_reorder
@@ -106,7 +106,9 @@ class _Loop:
     * ``finish``: x64 += x, r = b64 - A64 x64 in fp64, prog[4] = ||r||^2
       and b = fp32(r), the next pass's right-hand side (so a later pass
       starts with ``init`` alone, as the JAX package's ``refine_start``
-      starts from the residual of the previous pass's x);
+      starts from the residual of the previous pass's x); on a DIA
+      operator on the card one kernel writing the buffers in place
+      (``ops.fp64.finish64``);
     * the host mode's chunks of k plain steps, each writing prog[:4]
       (``chunk(k)``, captured at first use);
     * the device mode's two pass graphs (``pass_graph``): cast and init,
@@ -203,9 +205,9 @@ class _Loop:
         return fn
 
     def _finish_fn(self, bufs):
-        x = self.x64 + self.state[0]
-        r = residual64(self._A64, self.b64, x)
-        return x, r, self._dot(r, r).reshape(1)
+        x64, b, rr = bufs
+        return finish64(self._A64, x64, self.state[0], self.b64, b, rr,
+                        self._dot)
 
     def set_limits(self, tol: float, budget: int) -> None:
         """tol^2 and the budget of the next pass: one copy to the device."""

@@ -7,6 +7,8 @@ These tests need an NVIDIA GPU and skip without one; on the GPU machine
 
 This file imports no jax.  chip_smoke.py runs the same comparisons at the
 flagship's shapes."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -182,6 +184,161 @@ def test_dia_instantiations_and_alignment(cuda):
     v = torch.ones(129, device=cuda)[1:]
     with pytest.raises(ValueError, match="aligned"):
         K.dia_spmv(bands, v, (0,))
+
+
+# the fp64 pass finish (csrc/dia_finish64.cu): 2-D 5- and 9-point
+# stencils at 1024^2, 3-D Poisson at 192^3 (its +-n^2 planes beyond the
+# staged halo), 2-D elasticity's fine level at 512^2 (+-1027 inside it),
+# 32 bands near and far, a lone odd offset
+FINISH_OFFSETS = {
+    "5 p2d": (-1024, -1, 0, 1, 1024),
+    "7 p3d": (-36864, -192, -1, 0, 1, 192, 36864),
+    "9 aniso": (-1025, -1024, -1023, -1, 0, 1, 1023, 1024, 1025),
+    "21 e2d": (*range(-1027, -1020), *range(-3, 4), *range(1021, 1028)),
+    "32": DIA_OFFSETS["32"],
+    "one odd": (5,),
+}
+# n_pad in the kernel's tiles of 512 rows: 2 rows, one tile, a tile and
+# 2 rows, 25 tiles and 6 rows, 160 tiles (the p3d planes inside)
+FINISH_NPAD = (2, 512, 514, 12_806, 81_920)
+
+
+def _finish_inputs(cuda, offsets, n, seed=0):
+    from sparsh_amg_tpu_torch.ops.formats import DiaMatrix
+    rng = np.random.default_rng(seed)
+    bands = rng.standard_normal((len(offsets), n)) * np.pi
+    rows = np.arange(n)
+    for k, off in enumerate(offsets):
+        bands[k, (rows + off < 0) | (rows + off >= n)] = 0.0
+    A64 = DiaMatrix(bands=torch.from_numpy(bands).to(cuda),
+                    offsets=tuple(offsets), n_rows=n, n_cols=n)
+    x64, b64 = (torch.from_numpy(rng.standard_normal(n)).to(cuda)
+                for _ in range(2))
+    d = torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                         * 1e-3).to(cuda)
+    return A64, x64, d, b64
+
+
+def _finish_kernel(A64, x64, d, b64):
+    """(x, b, rr) of one kernel finish on a copy of x64."""
+    from sparsh_amg_tpu_torch.ops.fp64 import dia_finish64
+    x = x64.clone()
+    b = torch.full((A64.n_pad,), float("nan"), device=x64.device)
+    rr = torch.full((1,), float("nan"), dtype=torch.float64,
+                    device=x64.device)
+    return dia_finish64(A64, x, d, b64, b, rr)
+
+
+def _assert_finish(got, want):
+    x, b, rr = got
+    px, pr, prr = want
+    assert torch.equal(x, px)
+    assert torch.equal(b, pr.float())
+    assert abs(rr.item() - prr.item()) <= 1e-13 * prr.item()
+
+
+@pytest.mark.parametrize("n", FINISH_NPAD)
+@pytest.mark.parametrize("offs", FINISH_OFFSETS)
+def test_finish_kernel_matches_plain(cuda, offs, n):
+    """x64 and the fp32 right-hand side with finish64_plain's bits on the
+    card, ||r||^2 within 1e-13 relative (its own order of sums), two
+    launches with the same bits, each counted twice (update, residual)."""
+    from sparsh_amg_tpu_torch.ops.fp64 import dia_finish64, finish64_plain
+    A64, x64, d, b64 = _finish_inputs(cuda, FINISH_OFFSETS[offs], n)
+    want = finish64_plain(A64, x64, d, b64, torch.dot)
+    before = dia_finish64.launches
+    got, again = (_finish_kernel(A64, x64, d, b64) for _ in range(2))
+    torch.cuda.synchronize()
+    assert dia_finish64.launches == before + 4
+    _assert_finish(got, want)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_finish_kernel_captured_matches_eager(cuda):
+    """The finish captured in a CUDA graph gives the eager launch's bits,
+    replay after replay (the reduction's ticket reset by the update
+    launch), and the halos it stages; misaligned vectors refused."""
+    from sparsh_amg_tpu_torch.ops.fp64 import dia_finish64, finish_halo
+    A64, x64, d, b64 = _finish_inputs(cuda, FINISH_OFFSETS["7 p3d"],
+                                      81_920, seed=3)
+    eager = _finish_kernel(A64, x64, d, b64)
+    x = x64.clone()
+    b = torch.zeros(A64.n_pad, device=cuda)
+    rr = torch.zeros(1, dtype=torch.float64, device=cuda)
+    dia_finish64(A64, x, d, b64, b, rr)          # first launch outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dia_finish64(A64, x, d, b64, b, rr)
+    for _ in range(3):
+        x.copy_(x64)
+        b.zero_()
+        rr.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(x, eager[0]) and torch.equal(b, eager[1])
+        assert torch.equal(rr, eager[2])
+    assert {k: finish_halo(FINISH_OFFSETS[k])
+            for k in ("7 p3d", "21 e2d", "one odd")} == \
+        {"7 p3d": 192, "21 e2d": 1028, "one odd": 6}
+    bad = torch.zeros(A64.n_pad + 1, dtype=torch.float64, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        dia_finish64(A64, bad, d, b64, b, rr)
+
+
+def _plain_finish_fn(loop, bufs):
+    """The loop's finish through the plain composition."""
+    from sparsh_amg_tpu_torch.ops.fp64 import finish64_plain
+    return finish64_plain(loop._A64, bufs[0], loop.state[0], loop.b64,
+                          loop._dot)
+
+
+def test_flagship_solve_with_the_finish_kernel(cuda, monkeypatch):
+    """poisson3d(192) with the flagship's parameters: 12 iterations in 2
+    passes, the finish kernel launched twice a pass, x with the bits of
+    the same solve with the plain finish and relres within 1e-12
+    relative of it."""
+    from sparsh_amg_tpu_torch import AMGSolver, flagship
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.solve import solver as tsolver
+    A = poisson3d(192)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    s = AMGSolver(A, flagship.params(), flagship.krylov(), device=cuda)
+    rhs = s.prepare_rhs(b)
+    s.solve(rhs, tol=1e-2)
+    got, launches = counted(lambda: s.solve(rhs))
+    plain = copy.copy(s)
+    plain._reset_loop_state()
+    monkeypatch.setattr(tsolver._Loop, "_finish_fn", _plain_finish_fn)
+    plain.solve(rhs, tol=1e-2)
+    want, plain_launches = counted(lambda: plain.solve(rhs))
+    assert (got.iterations, got.refine_passes) == (12, 2)
+    assert (want.iterations, want.refine_passes, [h[0] for h in
+            want.history]) == (got.iterations, got.refine_passes,
+                               [h[0] for h in got.history])
+    assert launches["dia_finish64"] == 2 * got.refine_passes
+    assert plain_launches["dia_finish64"] == 0
+    assert abs(got.relres - want.relres) <= 1e-12 * want.relres
+    np.testing.assert_array_equal(got.x, want.x)
+    assert got.converged and got.relres <= 1e-8
+
+
+def test_finish_kernel_not_launched_on_elasticity3d(cuda):
+    """elasticity3d's fp64 fine operator is sliced ELL: its finish is the
+    plain composition, and the kernel never launches."""
+    from sparsh_amg_tpu_torch import AMGSolver, systems
+    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.ops.formats import EllMatrix
+    A, ns = systems.problem(3, 8)
+    s = AMGSolver(A, systems.params(3, dense_size=256), systems.krylov(),
+                  nullspace=ns, device=cuda)
+    assert isinstance(s.A64, EllMatrix)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    res, launches = counted(lambda: s.solve(b))
+    assert res.converged and launches["dia_finish64"] == 0
+    assert launches["block_ell_spmv"] > 0
 
 
 def _rows_of_lengths(n, lo, hi, mean, seed):
@@ -746,7 +903,8 @@ def _profiled_wrappers(fn):
     for e in prof.events():
         m = re.search(r"::dia_tile<[^,]+, (\d+),", e.name)
         name = WRAPPERS[int(m.group(1))].__name__ if m else next(
-            (w for w in ("block_ell_spmv", "ell_spmv", "loop_guard")
+            (w for w in ("block_ell_spmv", "ell_spmv", "dia_finish64",
+                         "loop_guard")
              if f"::{w}" in e.name or e.name.startswith(w)), None)
         if name and getattr(e.device_type, "name", "") == "CUDA":
             seen[name] = seen.get(name, 0) + 1
@@ -859,6 +1017,32 @@ def test_copied_solver_replays_the_same_graphs(cuda):
     assert (again.iterations, again.history) == \
         (first.iterations, first.history)
     np.testing.assert_array_equal(again.x, first.x)
+
+
+def test_capture_runs_with_the_collector_off(cuda):
+    """A graph's capture runs with Python's cyclic collector off (a
+    collection destroying a dropped solver's graphs mid-capture would
+    invalidate it) and leaves the collector as it found it."""
+    import gc
+    from sparsh_amg_tpu_torch.solve.graphs import ChunkGraph
+    buf = torch.zeros(8, device=cuda)
+    seen = []
+
+    def fn(bufs):
+        seen.append(gc.isenabled())
+        return (bufs[0] + 1,)
+    assert gc.isenabled()
+    g = ChunkGraph(fn, (buf,), True)
+    g.run()
+    torch.cuda.synchronize()
+    assert seen == [False] and gc.isenabled()
+    assert torch.equal(buf, torch.ones(8, device=cuda))
+    gc.disable()
+    try:
+        ChunkGraph(fn, (buf,), True)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_cli_host_mode_chunk_12_on_the_card(capsys):

@@ -321,3 +321,33 @@ def test_fused_host_mode_is_the_unfused_one(method, chunk):
         np.testing.assert_array_equal(got.x, x)
         assert got.converged and got.masked_steps == 0
         assert got.host_reads >= 2 * got.refine_passes
+
+
+def _parent_finish_fn(loop, bufs):
+    """The loop's finish as it was composed before the finish had a
+    kernel: x64 + x, the fp64 residual and its norm, copied back."""
+    x = loop.x64 + loop.state[0]
+    r = residual64(loop._A64, loop.b64, x)
+    return x, r, loop._dot(r, r).reshape(1)
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
+@pytest.mark.parametrize("name", ["poisson2d", "elasticity2d"])
+def test_device_mode_solve_keeps_the_parent_finish(name, method,
+                                                   monkeypatch):
+    """The eager device-mode solve through ops.fp64.finish64 takes the
+    iterations, passes and history of the same solve with the loop's
+    finish composed as before, and gives x with the same bits."""
+    A, ns, p = _problem(name)
+    kr = KrylovParams(method=method, loop_mode="device", maxiter=300)
+    s = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
+    ref = copy.copy(s)
+    ref._reset_loop_state()
+    b = np.random.default_rng(7).standard_normal(A.shape[0])
+    got = s.solve(b)
+    monkeypatch.setattr(tsolver._Loop, "_finish_fn", _parent_finish_fn)
+    want = ref.solve(b)
+    assert got.converged and want.converged
+    assert (got.iterations, got.refine_passes, got.history) == \
+        (want.iterations, want.refine_passes, want.history)
+    np.testing.assert_array_equal(got.x, want.x)
