@@ -13,6 +13,14 @@ seed), the driver's set-up (``prepare``), the measured window
 (``window``), then, once the window has closed and the memory peak is
 read, the driver's ``check`` against the plain reference
 (``reference/``), and the metric readers over the run's record.
+
+The cards a run used are counted from reports (``card_report``): the
+harness's own card, and one from each rank process of a driver whose
+ranks live in other processes (``Run.cards``).  ``merge_cards`` keeps
+each card once; ``device.count`` is the number of cards used, the memory
+peaks are the fullest card's, and the data-sheet rate that prices the
+roofline is the sum over the cards used.  A driver that reports nothing
+leaves the harness's own card alone.
 """
 from __future__ import annotations
 
@@ -142,6 +150,11 @@ class Run:
         self.setup_spans = {}
         self.work = None            # solve_bytes() of the solved hierarchy
         self.A = self.nullspace = None
+        # card_report() of each rank process, where the traffic driver's ranks
+        # run in other processes; each rank resets its peak just before
+        # the window, as run_cell does its own, and a request's pass_ms
+        # are its ranks' mean, so that busy_s is a card's
+        self.cards = []
 
     # -- helpers the drivers share ------------------------------------
     def sync(self) -> None:
@@ -205,6 +218,58 @@ class Run:
                 "pass_ms": [float(t) for t in res.pass_ms], **extra}
 
 
+class CardError(ValueError):
+    """The cards a run reports cannot be one device: kinds differ."""
+
+
+def card_report(device, setup_peak_bytes: int,
+                window_peak_bytes: int) -> dict:
+    """What one process held on its card: the card's UUID and name, and
+    ``max_memory_reserved`` over set-up and over the window (after a
+    reset just before it).  JSON-able, so a rank process can print it."""
+    return {"uuid": str(torch.cuda.get_device_properties(device).uuid),
+            "kind": torch.cuda.get_device_name(device),
+            "setup_peak_bytes": int(setup_peak_bytes),
+            "window_peak_bytes": int(window_peak_bytes)}
+
+
+def merge_cards(reports: list) -> list:
+    """The cards a run used, one entry a UUID at the largest peaks of the
+    reports on it; a card whose window peak is 0 was not used.  Raises
+    CardError where the reports name more than one kind of card."""
+    kinds = sorted({r["kind"] for r in reports})
+    if len(kinds) > 1:
+        raise CardError(f"the run reports cards of {len(kinds)} kinds: "
+                        f"{', '.join(kinds)}")
+    cards = {}
+    for r in reports:
+        c = cards.setdefault(r["uuid"], dict(r))
+        for k in ("setup_peak_bytes", "window_peak_bytes"):
+            c[k] = max(c[k], r[k])
+    return [c for c in cards.values() if c["window_peak_bytes"] > 0]
+
+
+def device_of(reports: list) -> tuple:
+    """(the result line's ``device``, the fullest card's window peak, the
+    data-sheet rate summed over the cards used or None) from the card
+    reports of a run; a run that reports no card ran on the CPU."""
+    if not reports:
+        return ({"platform": "cpu", "kind": "cpu", "count": 0,
+                 "memory_peak_bytes": 0}, 0, None)
+    cards = merge_cards(reports)
+    device = {"platform": "gpu", "kind": reports[0]["kind"],
+              "count": len(cards),
+              "memory_peak_bytes": max(
+                  (max(c["setup_peak_bytes"], c["window_peak_bytes"])
+                   for c in cards), default=0)}
+    if len(cards) > 1:
+        device["cards"] = cards
+    rates = [peak_bytes_per_s(c["kind"]) for c in cards]
+    rate = sum(rates) if rates and None not in rates else None
+    window_peak = max((c["window_peak_bytes"] for c in cards), default=0)
+    return device, window_peak, rate
+
+
 def compared_ok(compared: list) -> bool:
     return bool(compared) and all(
         math.isfinite(c["value"]) and c["value"] <= c["limit"]
@@ -259,19 +324,13 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     attempted = len(run.requests)
     correct = failed == 0 and attempted > 0 and compared_ok(compared)
 
+    reports = list(run.cards)
     card = None
     if cuda:
-        kind = torch.cuda.get_device_name(run.device)
+        reports.insert(0, card_report(run.device, setup_peak, window_peak))
         name, watts = card_info.name_and_power_limit()
         card = {"nvidia_smi_name": name, "power_limit_w": watts}
-        peak_bw = peak_bytes_per_s(kind)
-        device_info = {"platform": "gpu", "kind": kind, "count": 1,
-                       "memory_peak_bytes": int(max(setup_peak,
-                                                    window_peak))}
-    else:
-        peak_bw = None
-        device_info = {"platform": "cpu", "kind": "cpu", "count": 0,
-                       "memory_peak_bytes": 0}
+    device_info, window_peak, peak_bw = device_of(reports)
     busy_s = sum(sum(r.get("pass_ms", ())) for r in run.requests) / 1e3
     record = {"setup_s": setup_s, "window_s": run.window_s,
               "requests": run.requests, "device_peak_bytes": window_peak,
@@ -299,11 +358,13 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
 def summary(record: dict) -> dict:
     """What a reader of the run's standard error needs beside the metrics:
     the set-up's spans, the requests' wall times (each request's spans
-    where it has them) and counts."""
+    where it has them) and counts, and the rate that priced the
+    roofline."""
     reqs = record["requests"]
     walls = sorted(r["wall_s"] for r in reqs)
     out = {"setup_spans": record["setup_spans"], "requests": len(reqs),
-           "window_s": record["window_s"]}
+           "window_s": record["window_s"],
+           "peak_bytes_per_s": record["peak_bytes_per_s"]}
     if walls:
         out["wall_s"] = {"min": walls[0], "median": walls[len(walls) // 2],
                          "max": walls[-1]}

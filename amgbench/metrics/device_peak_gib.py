@@ -1,6 +1,8 @@
 """device_peak_gib: torch.cuda.max_memory_reserved() over the window,
-after a reset just before it, in GiB: what the card holds, CUDA graph
-pools included.  Not read off the card."""
+after a reset just before it, on the fullest card the run used (the
+harness's own, or a rank's on its card: ``harness.merge_cards``), in
+GiB: what that card holds, CUDA graph pools included.  Not read off the
+card."""
 
 
 def read(record):

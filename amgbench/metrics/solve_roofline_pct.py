@@ -1,8 +1,9 @@
-"""solve_roofline_pct: the least time the card's data-sheet memory rate
-allows for the bytes the window's solves need (``amgbench/work.py``: the
+"""solve_roofline_pct: the least time the data-sheet memory rate of the
+cards the run used, summed over them (``harness.device_of``), allows for
+the bytes the window's solves need (``amgbench/work.py``: the
 iterations and passes each solve reports, priced on the host
 hierarchy's CSR matrices), over the pass graphs' device time (CUDA events
-around each launch), in %.  Nothing where no pass graph was timed or the
+around each launch), in %.  Nothing where no pass graph was timed or a
 card has no data-sheet rate."""
 
 

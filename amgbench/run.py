@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run one cell of the benchmark of ``sparsh_amg_tpu_torch`` on one card.
+"""Run one cell of the benchmark of ``sparsh_amg_tpu_torch``.
 
     python3 amgbench/run.py --workload CELL --seed N --seconds S --trace 0|1
 
@@ -13,8 +13,11 @@ number compared is printed beside its limit as the last lines of
 standard error and under ``compared``, the line's last key.
 
 Exits 2, printing no result, without a CUDA card, when the port is not
-in this checkout, or when JAX or the JAX package was loaded by the time
-the window closed.
+in this checkout, when the run used fewer cards than the cell's
+``chips`` (``device.count``: the distinct cards on which the harness or
+a rank of the traffic driver held memory in the window), when the cards
+it reports are of more than one kind, or when JAX or the JAX package
+was loaded by the time the window closed.
 """
 from __future__ import annotations
 
@@ -67,8 +70,15 @@ def main(argv=None) -> int:
     if os.path.dirname(where) != ROOT:
         return fail(f"the port was imported from {where}, not from the "
                     f"checkout {ROOT}")
-    result, record = harness.run_cell(spec, args.seed, args.seconds,
-                                      bool(args.trace), "cuda", T_START)
+    try:
+        result, record = harness.run_cell(spec, args.seed, args.seconds,
+                                          bool(args.trace), "cuda", T_START)
+    except harness.CardError as e:
+        return fail(str(e))
+    used = result["device"]["count"]
+    if used < chips:
+        return fail(f"the run used {used} card(s), the cell asks for "
+                    f"{chips}")
     found = harness.jax_modules()
     if found:
         return fail(f"loaded after the window: {', '.join(found)}")
