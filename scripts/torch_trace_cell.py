@@ -25,7 +25,11 @@ cost inside), and under ``trace`` what the tracer found:
   open across them;
 * resetup cells: host set-up by phase and by level, the freeze's packing
   and uploads, the warm-up's captures, and ``setup_prolongator_s``,
-  ``setup_rap_s``, ``freeze_pack_s``, ``freeze_upload_s`` a request.
+  ``setup_rap_s``, ``freeze_pack_s``, ``freeze_upload_s`` a request;
+* cells of rank processes (traffic kind ``rhs_stream_ranks``): each rank
+  traces itself (the mix's ``trace_dir``), and each rank's window is
+  taken apart as an rhs cell's on its own block levels at one card's
+  rate, its set-up by blocked level, tail and freeze.
 
 ``--resolution`` times back-to-back stamps on the card instead: the
 smallest nonzero delta of the global timer between two of them.
@@ -251,9 +255,62 @@ def resetup_report(record: dict, window: dict) -> dict:
         "requests": n}
 
 
+def blocked_setup_report(setup: dict) -> dict:
+    """A rank's process-local set-up from its trace: the blocked setup by
+    level (its rows and nnz of the level), the gathered tail, the freeze,
+    and the bytes its set-up exchanges sent."""
+    spans = setup["spans"]
+    s = lambda sp: (sp["end_ns"] - sp["start_ns"]) / 1e9
+    out = {"levels": [dict(sp["attrs"], s=s(sp)) for sp in spans
+                      if sp["name"] == "setup.blocked.level"]}
+    for name in ("setup.blocked", "setup.blocked.tail", "freeze.dist",
+                 "warm"):
+        got = [s(sp) for sp in spans if sp["name"] == name and sp["end_ns"]]
+        if got:
+            out[name] = sum(got)
+    out["counters"] = setup["counters"]
+    return out
+
+
+def run_ranks(spec: dict, seed: int, seconds: float, device: str) -> dict:
+    """A cell of rank processes (``rhs_stream_ranks``): each rank traces
+    itself (the mix's ``trace_dir``) and writes its set-up and window;
+    each rank's window is taken apart as an rhs cell's, on its own block
+    levels at one card's rate."""
+    import tempfile
+    from amgbench import harness
+    from amgbench.work import peak_bytes_per_s
+    import torch
+    with tempfile.TemporaryDirectory(prefix="trace_ranks_") as tmp:
+        spec = dict(spec, traffic=dict(spec["traffic"], trace_dir=tmp))
+        result, record = harness.run_cell(spec, seed, seconds, True, device,
+                                          T_START)
+        files = sorted(f for f in os.listdir(tmp) if f.startswith("rank"))
+        ranks = []
+        for f in files:
+            with open(os.path.join(tmp, f)) as fh:
+                ranks.append(json.load(fh))
+    peak = peak_bytes_per_s(torch.cuda.get_device_name()) \
+        if device == "cuda" else 3.35e12
+    end_to_end = harness.read_metrics(spec["end_to_end"], record)
+    out = {"ranks": []}
+    for r in ranks:
+        rep = rhs_report({"requests": r["requests"]}, r["window"],
+                         r["levels"] + r["tail"], spec["config"]["amg"],
+                         peak)
+        rep["rank"] = r["rank"]
+        rep["setup"] = blocked_setup_report(r["setup"])
+        out["ranks"].append(rep)
+    out["end_to_end"] = {k: v["value"] for k, v in end_to_end.items()}
+    result["trace"] = out
+    return result
+
+
 def run(spec: dict, seed: int, seconds: float, device: str = "cuda") -> dict:
     """The cell `spec` (``harness.load_cell``) run with the tracer on: the
     harness's result with the tracer's findings under ``trace``."""
+    if spec["traffic"]["kind"] == "rhs_stream_ranks":
+        return run_ranks(spec, seed, seconds, device)
     from amgbench import harness
     from amgbench.work import levels_of, peak_bytes_per_s
     from sparsh_amg_tpu_torch.utils import trace

@@ -19,6 +19,11 @@ directly; gloo (the CPU tests, and several ranks sharing one card) takes
 host tensors, so a CUDA tensor is copied to a pinned host buffer and back
 explicitly around each gloo collective.  The kernels still run on the card.
 
+Every collective a RankGroup issues adds 1 to the tally
+``dist.collectives`` and every halo the bytes this rank sends to
+``dist.halo_bytes`` (``trace.Tally``: counted whether tracing is on or
+off, and again at each replay of a graph that captured them).
+
 Operators:
 
 * ``DistDia``: the interior product is the DIA kernel on the local block
@@ -51,7 +56,11 @@ from ..ops.dia_spmv import dia_spmv
 from ..ops.ell_spmv import ell_plain, ell_spmv
 from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, dia_offsets,
                            pack_ell)
+from ..utils.trace import Tally
 from .partition import Partition, _round_up
+
+COLLECTIVES = Tally("dist.collectives")
+HALO_BYTES = Tally("dist.halo_bytes")
 
 # all_gather_into_tensor was renamed all_gather_single in later torch
 _gather_into = getattr(dist, "all_gather_single", None) \
@@ -115,6 +124,8 @@ class RankGroup:
             ops += [dist.P2POp(dist.isend, sends[-1], peer, self.group),
                     dist.P2POp(dist.irecv, right, peer, self.group)]
         reqs = dist.batch_isend_irecv(ops)
+        COLLECTIVES.add()
+        HALO_BYTES.add(len(sends) * h * x.element_size())
 
         def finish():
             for req in reqs:
@@ -141,6 +152,7 @@ class RankGroup:
         """Every rank's x, concatenated in rank order."""
         if self.size == 1:
             return x
+        COLLECTIVES.add()
         if self._staged(x):
             out = torch.empty(self.size * x.shape[0], dtype=x.dtype,
                               pin_memory=True)
@@ -155,6 +167,7 @@ class RankGroup:
         """The sum of t over the ranks (t itself with one rank)."""
         if self.size == 1:
             return t
+        COLLECTIVES.add()
         if self._staged(t):
             h = _pinned(t)
             dist.all_reduce(h, group=self.group)

@@ -12,19 +12,21 @@ through the gloo backend.
   returns this rank's device; ``destroy_process_group`` (also run at
   exit) releases the CUDA graphs of this process's distributed solvers
   before it destroys the group.
-* ``spawn_ranks`` starts N rank processes of a command with those
-  variables set, waits for all of them, and stops the others when one
-  fails; ``launch_processes`` runs the distributed solve below in them
+* ``start_ranks`` starts N rank processes of a command with those
+  variables set and returns a ``Ranks`` handle to talk to them while
+  they run (JSON lines in and out), which stops them all when one fails;
+  ``spawn_ranks`` starts them and waits for all of them to exit;
+  ``launch_processes`` runs the distributed solve below in them
   and collects each rank's JSON result, as the JAX package's launcher
   does (``python -m sparsh_amg_tpu_torch.parallel.multihost --worker``).
 """
 from __future__ import annotations
 
 import atexit
-import contextlib
 import copy
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -125,15 +127,135 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(num: int, argv: list, *, backend: str, device="cuda",
-                timeout: float = 900.0, threads: int | None = None,
-                env: dict | None = None) -> list:
-    """Run ``python argv...`` as ranks 0..num-1 of one process group and
-    return each rank's standard output.  Every rank gets MASTER_ADDR,
-    MASTER_PORT, RANK, WORLD_SIZE, SPARSH_DIST_BACKEND and
-    SPARSH_DIST_DEVICE; `threads` caps each rank's torch and OpenMP
-    threads (default: this machine's cores shared out).  When a rank fails or the time runs out, every rank is
+class Ranks:
+    """Rank processes that ``start_ranks`` started, talked to while they
+    run: ``send`` writes a JSON line to every rank's standard input,
+    ``expect`` reads the JSON line each rank prints with a given
+    ``"phase"``, ``wait`` waits for all of them to exit, ``stop`` kills
+    every rank still running (also run at this process's exit).  Each
+    rank's standard output and error go to files, read from the start
+    by ``outputs``.  When a rank fails or the time runs out, every rank is
     stopped and RuntimeError carries the failing rank's output."""
+
+    def __init__(self, procs: list, logs: list, tmp: str):
+        self.procs, self._logs, self._tmp = procs, logs, tmp
+        self._read = [0] * len(procs)      # bytes of stdout parsed
+        self._lines = [[] for _ in procs]   # JSON lines not yet expected
+        atexit.register(self.stop)
+
+    def __len__(self) -> int:
+        return len(self.procs)
+
+    def outputs(self) -> list:
+        """(stdout, stderr) of each rank so far."""
+        out = []
+        for paths in self._logs:
+            texts = []
+            for path in paths:
+                with open(path, errors="replace") as f:
+                    texts.append(f.read())
+            out.append(tuple(texts))
+        return out
+
+    def failed(self) -> int | None:
+        """The first rank that exited non-zero, or None."""
+        return next((r for r, p in enumerate(self.procs)
+                     if p.poll() not in (None, 0)), None)
+
+    def fail(self, rank: int, why: str) -> RuntimeError:
+        """Stop every rank; the error naming `rank` with its output."""
+        self.stop()
+        o, e = self.outputs()[rank]
+        return RuntimeError(f"rank {rank} of {len(self)} failed ({why}):\n"
+                            f"{o[-3000:]}\n{e[-6000:]}")
+
+    def _check(self, deadline: float, timeout: float) -> None:
+        bad = self.failed()
+        if bad is not None:
+            raise self.fail(bad, f"rc={self.procs[bad].returncode}")
+        if time.monotonic() > deadline:
+            late = next((r for r, p in enumerate(self.procs)
+                         if p.poll() is None), 0)
+            raise self.fail(late, f"timed out after {timeout:.0f} s")
+
+    def send(self, obj) -> None:
+        """One JSON line to every rank's standard input."""
+        line = (json.dumps(obj) + "\n").encode()
+        for r, p in enumerate(self.procs):
+            try:
+                p.stdin.write(line)
+                p.stdin.flush()
+            except (BrokenPipeError, OSError, AttributeError) as e:
+                raise self.fail(r, f"its input is closed: {e!r}") from e
+
+    def _take(self, r: int) -> None:
+        with open(self._logs[r][0], "rb") as f:
+            f.seek(self._read[r])
+            chunk = f.read()
+        end = chunk.rfind(b"\n") + 1          # whole lines only
+        self._read[r] += end
+        for line in chunk[:end].decode(errors="replace").splitlines():
+            if line.startswith("{"):
+                try:
+                    self._lines[r].append(json.loads(line))
+                except ValueError:
+                    pass
+
+    def expect(self, phase: str, timeout: float) -> list:
+        """Each rank's next JSON line whose ``"phase"`` is `phase`, in
+        rank order, waiting at most `timeout` s for all of them."""
+        deadline = time.monotonic() + timeout
+        got = [None] * len(self)
+        while True:
+            for r in range(len(self)):
+                if got[r] is None:
+                    self._take(r)
+                    for k, line in enumerate(self._lines[r]):
+                        if line.get("phase") == phase:
+                            got[r] = line
+                            del self._lines[r][:k + 1]
+                            break
+            if all(g is not None for g in got):
+                return got
+            self._check(deadline, timeout)
+            time.sleep(0.01)
+
+    def wait(self, timeout: float) -> list:
+        """Each rank's standard output once every rank has exited 0."""
+        deadline = time.monotonic() + timeout
+        while not all(p.poll() == 0 for p in self.procs):
+            self._check(deadline, timeout)
+            time.sleep(0.02)
+        return [o for o, _ in self.outputs()]
+
+    def stop(self) -> None:
+        """Kill every rank still running and wait for each to exit."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            if p.stdin is not None:
+                try:
+                    p.stdin.close()
+                except OSError:
+                    pass
+
+    def close(self) -> None:
+        """stop(), then delete the output files."""
+        self.stop()
+        atexit.unregister(self.stop)
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+
+def start_ranks(num: int, argv: list, *, backend: str, device="cuda",
+                threads: int | None = None, env: dict | None = None,
+                stdin: bool = False) -> Ranks:
+    """Start ``python argv...`` as ranks 0..num-1 of one process group
+    and return at once.  Every rank gets MASTER_ADDR, MASTER_PORT, RANK,
+    WORLD_SIZE, SPARSH_DIST_BACKEND and SPARSH_DIST_DEVICE; `threads`
+    caps each rank's torch and OpenMP threads (default: this machine's
+    cores shared out).  With `stdin` each rank reads what ``send``
+    writes; otherwise it inherits this process's input."""
     from .solver import check_backend
     check_backend(backend, num, torch.device(device))
     base = dict(os.environ, **(env or {}))
@@ -145,49 +267,36 @@ def spawn_ranks(num: int, argv: list, *, backend: str, device="cuda",
     threads = threads or max(1, (os.cpu_count() or 1) // num)
     base.update(OMP_NUM_THREADS=str(threads),
                 SPARSH_RANK_THREADS=str(threads))
-    with tempfile.TemporaryDirectory(prefix="sparsh_ranks_") as tmp, \
-            contextlib.ExitStack() as files:
-        logs, procs = [], []
-        try:
-            for r in range(num):
-                out, err = (files.enter_context(open(
-                    os.path.join(tmp, f"{r}.{k}"), "w+")) for k in "oe")
-                logs.append((out, err))
+    tmp = tempfile.mkdtemp(prefix="sparsh_ranks_")
+    logs, procs = [], []
+    try:
+        for r in range(num):
+            paths = tuple(os.path.join(tmp, f"{r}.{k}") for k in "oe")
+            logs.append(paths)
+            with open(paths[0], "wb") as out, open(paths[1], "wb") as err:
                 procs.append(subprocess.Popen(
                     [sys.executable, *argv], cwd=REPO, stdout=out,
-                    stderr=err, env=dict(base, RANK=str(r),
-                                         LOCAL_RANK=str(r))))
-            deadline = time.monotonic() + timeout
-            failed, timed_out = None, False
-            while failed is None:
-                codes = [p.poll() for p in procs]
-                failed = next((r for r, c in enumerate(codes)
-                               if c not in (None, 0)), None)
-                if failed is None and all(c == 0 for c in codes):
-                    break
-                if time.monotonic() > deadline:
-                    failed = next(r for r, c in enumerate(codes)
-                                  if c is None)
-                    timed_out = True
-                    break
-                time.sleep(0.02)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-        outs = []
-        for out, err in logs:
-            out.seek(0)
-            err.seek(0)
-            outs.append((out.read(), err.read()))
-    if failed is not None:
-        o, e = outs[failed]
-        why = f"timed out after {timeout:.0f} s" if timed_out \
-            else f"rc={procs[failed].returncode}"
-        raise RuntimeError(f"rank {failed} of {num} failed ({why}):\n"
-                           f"{o[-3000:]}\n{e[-6000:]}")
-    return [o for o, _ in outs]
+                    stderr=err, stdin=subprocess.PIPE if stdin else None,
+                    env=dict(base, RANK=str(r), LOCAL_RANK=str(r))))
+    except BaseException:
+        Ranks(procs, logs[:len(procs)], tmp).close()
+        raise
+    return Ranks(procs, logs, tmp)
+
+
+def spawn_ranks(num: int, argv: list, *, backend: str, device="cuda",
+                timeout: float = 900.0, threads: int | None = None,
+                env: dict | None = None) -> list:
+    """Run ``python argv...`` as ranks 0..num-1 of one process group
+    (``start_ranks``) and return each rank's standard output once all
+    have exited.  When a rank fails or the time runs out, every rank is
+    stopped and RuntimeError carries the failing rank's output."""
+    ranks = start_ranks(num, argv, backend=backend, device=device,
+                        threads=threads, env=env)
+    try:
+        return ranks.wait(timeout)
+    finally:
+        ranks.close()
 
 
 def launch_or_join(n: int, cmd: list, backend: str | None, device,
@@ -236,10 +345,10 @@ def launch_processes(num_processes: int, problem: str = "poisson3d",
                      compare_eager: bool = False) -> list:
     """Run the distributed solve of ``_worker_main`` on `num_processes`
     ranks and return their result dicts (the JAX launcher's keys, plus
-    the rank's backend, device, times, kernel launches and what its loop
-    did: whether it captured, host reads, masked steps, the captured
-    step's node kinds, the pass graphs' device ms and their share of the
-    solve's wall).
+    the rank's backend, device, times, kernel launches, collectives
+    (``dist.COLLECTIVES``) and what its loop did: whether it captured,
+    host reads, masked steps, the captured step's node kinds, the pass
+    graphs' device ms and their share of the solve's wall).
 
     ``setup="blocked"`` is the process-local path: each rank assembles
     only its row block, coarsens through the blocked setup and returns
@@ -248,8 +357,8 @@ def launch_processes(num_processes: int, problem: str = "poisson3d",
     (``KrylovParams``'s chunk); the solver is warmed
     (``AMGSolver.warm``) before the timed solve.  With `compare_eager`
     each rank also solves on a copy that runs the loop eagerly, from the
-    same state, and reports its counts, time and whether its x has the
-    same bits (``"eager"``, ``"same_bits"``)."""
+    same state, and reports its counts, collectives, time and whether
+    its x has the same bits (``"eager"``, ``"same_bits"``)."""
     backend = backend or default_backend(device)
     cmd = ["-m", "sparsh_amg_tpu_torch.parallel.multihost", "--worker",
            "--m", str(m), "--setup", setup, "--problem", problem,
@@ -327,6 +436,7 @@ def _worker_main(argv=None) -> None:
     device = init_process_group()
     from ..ops import counted
     from ..params import KrylovParams
+    from .dist import COLLECTIVES
     from .solver import DistAMGSolver
 
     n_glob, make_rows, make_ns, params = _problem_spec(
@@ -347,6 +457,10 @@ def _worker_main(argv=None) -> None:
         if args.compare_eager:
             eager = copy.copy(solver)
             eager.capture = False
+            # its loop is built now, as warm() built the captured one: a
+            # loop's construction issues collectives of its own (the
+            # initial Krylov state), which neither solve below counts
+            eager._loop()
         return eager, time.perf_counter() - t
 
     if args.setup == "blocked":
@@ -359,7 +473,9 @@ def _worker_main(argv=None) -> None:
         eager, warm_s = ready(solver)
         rhs = solver.prepare_rhs(b_loc)
         sync()
+        c0 = COLLECTIVES.launches
         res, launches = counted(lambda: solver.solve(rhs))
+        collectives = COLLECTIVES.launches - c0
         x_loc = np.asarray(res.x, dtype=np.float64)
         # the true residual on the owned rows against the gathered
         # solution (the one O(n) array, for this check only)
@@ -386,7 +502,9 @@ def _worker_main(argv=None) -> None:
         eager, warm_s = ready(solver)
         rhs = solver.prepare_rhs(b)
         sync()
+        c0 = COLLECTIVES.launches
         res, launches = counted(lambda: solver.solve(rhs))
+        collectives = COLLECTIVES.launches - c0
         r0, r1 = 0, n_glob
         x_loc = np.asarray(res.x, dtype=np.float64)
         true_relres = float(np.linalg.norm(A @ x_loc - b)
@@ -414,7 +532,8 @@ def _worker_main(argv=None) -> None:
         "pass_ms": res.pass_ms,
         "pass_share": sum(res.pass_ms) / 1e3 / res.solve_time,
         "levels": [type(l.A).__name__ for l in solver.dist.levels],
-        "launches": launches, "loop_mode": solver.krylov.loop_mode,
+        "launches": launches, "collectives": collectives,
+        "loop_mode": solver.krylov.loop_mode,
         "capture": solver._loop().capture, "host_reads": res.host_reads,
         "masked_steps": res.masked_steps,
         "step_node_kinds": (solver._loop().step.node_kinds()
@@ -425,10 +544,12 @@ def _worker_main(argv=None) -> None:
         "x_head": x_loc[:8].tolist(),
     }
     if eager is not None:
+        c0 = COLLECTIVES.launches
         want = eager.solve(rhs)
         out["eager"] = {"iterations": want.iterations,
                         "passes": want.refine_passes,
                         "host_reads": want.host_reads,
+                        "collectives": COLLECTIVES.launches - c0,
                         "solve_s": want.solve_time}
         out["same_bits"] = bool(np.array_equal(
             np.asarray(want.x, dtype=np.float64), x_loc))

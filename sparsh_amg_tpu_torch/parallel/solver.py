@@ -44,6 +44,7 @@ from ..setup.hierarchy import Hierarchy, amg_setup
 from ..setup.reorder import maybe_reorder
 from ..solve.cycles import make_cycle
 from ..solve.solver import AMGSolver, DeviceRhs, check_krylov
+from ..utils import trace
 from .dist import RankGroup, pdot
 from .hierarchy import DistHierarchy, fine_fp64, to_dist
 
@@ -185,7 +186,10 @@ class DistAMGSolver(AMGSolver):
         runs the blocked setup with boundary exchanges over `comm` (a
         GlooComm over every rank by default) and freezes its own block.
         ``SolveResult.x`` is then this rank's rows (``row_range``);
-        ``gather_global`` assembles the whole vector."""
+        ``gather_global`` assembles the whole vector.  ``setup_phases``
+        keeps the seconds of the blocked setup (span ``setup.blocked``)
+        and of the freeze (span ``freeze.dist``), read whether tracing
+        is on or off."""
         from ..setup.blocked import blocked_amg_setup, partition_bounds
         from ..setup.comm import GlooComm, ThreadComm, _ThreadGroup
         from .blocked_dist import blocked_to_dist, fine_fp64_blocked
@@ -209,16 +213,21 @@ class DistAMGSolver(AMGSolver):
         A_own = make_rows(r0, r1).tocsr()
         assert A_own.shape == (r1 - r0, n)
         ns_own = make_nullspace(r0, r1) if make_nullspace else None
-        self.blocked = blocked_amg_setup(
-            A_own, bounds, comm, self.params,
-            bounds_fn=lambda nc: partition_bounds(nc, ranks.size, ranks.size,
-                                                  align=align),
-            nullspace_own=ns_own)
-        dh = blocked_to_dist(self.blocked, comm, self.params, group=group,
-                             device=self.torch_device)
-        A64 = fine_fp64_blocked(self.blocked.levels[0].A, r0, dh.parts[0],
-                                comm, self.params, dh.ranks,
-                                device=self.torch_device)
+        with trace.timed("setup.blocked", rows=r1 - r0,
+                         nnz=int(A_own.nnz)) as t_setup:
+            self.blocked = blocked_amg_setup(
+                A_own, bounds, comm, self.params,
+                bounds_fn=lambda nc: partition_bounds(
+                    nc, ranks.size, ranks.size, align=align),
+                nullspace_own=ns_own)
+        with trace.timed("freeze.dist") as t_freeze:
+            dh = blocked_to_dist(self.blocked, comm, self.params,
+                                 group=group, device=self.torch_device)
+            A64 = fine_fp64_blocked(self.blocked.levels[0].A, r0,
+                                    dh.parts[0], comm, self.params, dh.ranks,
+                                    device=self.torch_device)
+        self.setup_phases = {"blocked": t_setup.seconds,
+                             "freeze": t_freeze.seconds}
         self._finish(dh, A64, local_rows=True, t0=t0)
         return self
 

@@ -56,6 +56,7 @@ from .splitting import _hash01, FPT, CPT
 from .interp import (extpi_interpolation, direct_interpolation,
                      truncate_rows)
 from .galerkin import spgemm
+from ..utils import trace
 from .._native import get_lib, csr_arrays
 
 UNASSIGNED = -1
@@ -1224,7 +1225,11 @@ def blocked_amg_setup(A_own: sp.csr_matrix, bounds: np.ndarray,
     aggregation path (setup/blocked_sa.py; bit-identical aggregates to
     the serial greedy) with ``nullspace_own`` = this rank's rows of the
     near-nullspace basis (RBM-SA elasticity); row blocks must be
-    node-aligned (params.row_align)."""
+    node-aligned (params.row_align).
+
+    While tracing is on each blocked level is the span
+    ``setup.blocked.level`` (attrs level, and this rank's rows and nnz of
+    it) and the gathered tail's setup ``setup.blocked.tail``."""
     is_sa = params.coarsening == "aggregation"
     assert params.coarsening == "pmis" or is_sa, \
         "blocked setup: PMIS (flagship) or aggregation (SA) coarsening"
@@ -1246,78 +1251,81 @@ def blocked_amg_setup(A_own: sp.csr_matrix, bounds: np.ndarray,
     lvl = 0
     while int(bounds[-1]) > blocked_threshold \
             and len(levels) < params.max_levels - 1:
-        n = int(bounds[-1])
-        if is_sa:
-            from .blocked_sa import blocked_sa_step, route_coarse_nullspace
-            bs = params.agg_blocksize if lvl == 0 else (
-                B_own.shape[1] if B_own is not None else 1)
-            out = blocked_sa_step(A_own, r0, r1, bounds, comm, params,
-                                  B_own, bs)
-            if out is None:
-                break
-            P_own, n_c, bparts = out
-            cf_own = None
-        else:
-            aggressive = (lvl < params.agg_levels
-                          and params.coarsening in ("rs", "pmis", "hmis")
-                          and params.aggressive == "pmis2")
-            out = blocked_coarsen_step(A_own, r0, r1, bounds, comm,
-                                       params, aggressive)
-            if out is None:
-                break
-            P_own, cf_own, n_c, gmap_own = out
-            bparts = None
-        if n_c >= 0.95 * n and levels:
-            break                                   # stagnation guard
-        bounds_c = np.asarray(bounds_fn(n_c), dtype=_I64)
-        R_own = blocked_transpose(P_own, r0, n, bounds_c, comm)
-        Ac_own = blocked_rap(A_own, P_own, r0, r1, bounds, bounds_c, comm,
-                             params.rap_drop_tol)
-        levels.append(BlockedLevel(A=A_own, r0=r0, r1=r1, n=n,
-                                   bounds=bounds, P=P_own, R=R_own,
-                                   cf=cf_own))
-        if bparts is not None:
-            from .blocked_sa import route_coarse_nullspace
-            B_own = route_coarse_nullspace(bparts, bounds_c, comm,
-                                           B_own.shape[1])
-        elif is_sa:
-            B_own = None
-        A_own = Ac_own
-        bounds = bounds_c
-        r0, r1 = int(bounds[comm.rank]), int(bounds[comm.rank + 1])
-        lvl += 1
+        with trace.span("setup.blocked.level", level=lvl, rows=r1 - r0,
+                        nnz=int(A_own.nnz)):
+            n = int(bounds[-1])
+            if is_sa:
+                from .blocked_sa import blocked_sa_step
+                bs = params.agg_blocksize if lvl == 0 else (
+                    B_own.shape[1] if B_own is not None else 1)
+                out = blocked_sa_step(A_own, r0, r1, bounds, comm, params,
+                                      B_own, bs)
+                if out is None:
+                    break
+                P_own, n_c, bparts = out
+                cf_own = None
+            else:
+                aggressive = (lvl < params.agg_levels
+                              and params.coarsening in ("rs", "pmis", "hmis")
+                              and params.aggressive == "pmis2")
+                out = blocked_coarsen_step(A_own, r0, r1, bounds, comm,
+                                           params, aggressive)
+                if out is None:
+                    break
+                P_own, cf_own, n_c, gmap_own = out
+                bparts = None
+            if n_c >= 0.95 * n and levels:
+                break                                   # stagnation guard
+            bounds_c = np.asarray(bounds_fn(n_c), dtype=_I64)
+            R_own = blocked_transpose(P_own, r0, n, bounds_c, comm)
+            Ac_own = blocked_rap(A_own, P_own, r0, r1, bounds, bounds_c,
+                                 comm, params.rap_drop_tol)
+            levels.append(BlockedLevel(A=A_own, r0=r0, r1=r1, n=n,
+                                       bounds=bounds, P=P_own, R=R_own,
+                                       cf=cf_own))
+            if bparts is not None:
+                from .blocked_sa import route_coarse_nullspace
+                B_own = route_coarse_nullspace(bparts, bounds_c, comm,
+                                               B_own.shape[1])
+            elif is_sa:
+                B_own = None
+            A_own = Ac_own
+            bounds = bounds_c
+            r0, r1 = int(bounds[comm.rank]), int(bounds[comm.rank + 1])
+            lvl += 1
 
     # gather the small remainder and finish globally (identical per rank)
     from .hierarchy import amg_setup
-    blocks = comm.allgather((A_own.indptr, A_own.indices, A_own.data,
-                             A_own.shape))
-    n_tail = int(bounds[-1])
-    indptr = np.zeros(n_tail + 1, dtype=_I64)
-    off = 0
-    idx_parts, dat_parts = [], []
-    for b, (ip, ix, dt, shp) in enumerate(blocks):
-        rows = shp[0]
-        indptr[off + 1: off + rows + 1] = indptr[off] + ip[1:]
-        idx_parts.append(ix)
-        dat_parts.append(dt)
-        off += rows
-    A_tail = sp.csr_matrix(
-        (np.concatenate(dat_parts) if dat_parts else np.empty(0),
-         np.concatenate(idx_parts) if idx_parts else np.empty(0, np.int32),
-         indptr), shape=(n_tail, n_tail))
-    tail_params = params.replace(
-        agg_levels=max(0, params.agg_levels - len(levels)))
-    B_tail = None
-    if is_sa and B_own is not None:
-        B_tail = np.concatenate(comm.allgather(B_own), axis=0)
-    if is_sa and levels:
-        # the tail continues the hierarchy at coarse levels, where the
-        # finest-level agg_blocksize no longer applies — coarse levels
-        # are amalgamated by the nullspace dimension (amg_setup's own
-        # bs-chain rule, entered here at level >= 1 semantics)
-        tail_params = tail_params.replace(
-            agg_blocksize=(B_tail.shape[1] if B_tail is not None else 1))
-    tail = amg_setup(A_tail, tail_params, nullspace=B_tail)
+    with trace.span("setup.blocked.tail", rows=int(bounds[-1])):
+        blocks = comm.allgather((A_own.indptr, A_own.indices, A_own.data,
+                                 A_own.shape))
+        n_tail = int(bounds[-1])
+        indptr = np.zeros(n_tail + 1, dtype=_I64)
+        off = 0
+        idx_parts, dat_parts = [], []
+        for b, (ip, ix, dt, shp) in enumerate(blocks):
+            rows = shp[0]
+            indptr[off + 1: off + rows + 1] = indptr[off] + ip[1:]
+            idx_parts.append(ix)
+            dat_parts.append(dt)
+            off += rows
+        A_tail = sp.csr_matrix(
+            (np.concatenate(dat_parts) if dat_parts else np.empty(0),
+             np.concatenate(idx_parts) if idx_parts
+             else np.empty(0, np.int32), indptr), shape=(n_tail, n_tail))
+        tail_params = params.replace(
+            agg_levels=max(0, params.agg_levels - len(levels)))
+        B_tail = None
+        if is_sa and B_own is not None:
+            B_tail = np.concatenate(comm.allgather(B_own), axis=0)
+        if is_sa and levels:
+            # the tail continues the hierarchy at coarse levels, where the
+            # finest-level agg_blocksize no longer applies — coarse levels
+            # are amalgamated by the nullspace dimension (amg_setup's own
+            # bs-chain rule, entered here at level >= 1 semantics)
+            tail_params = tail_params.replace(
+                agg_blocksize=(B_tail.shape[1] if B_tail is not None else 1))
+        tail = amg_setup(A_tail, tail_params, nullspace=B_tail)
     return BlockedHierarchy(levels=levels, tail=tail, params=params)
 
 

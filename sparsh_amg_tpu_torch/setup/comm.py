@@ -13,7 +13,8 @@ against this small interface; three implementations exist:
 * :class:`GlooComm` — real process boundaries: one process per rank of a
   ``torch.distributed`` process group, host objects exchanged over a gloo
   group of every rank (``all_gather_object``).  Used by the rank
-  processes of `parallel.multihost`.
+  processes of `parallel.multihost`.  While tracing is on, the counter
+  ``comm.exchange_bytes`` adds the pickled bytes each exchange sends.
 * :class:`PipeComm` — forked processes over pairwise pipes (the cost
   harness, no process group).
 
@@ -23,6 +24,7 @@ the host counts this targets.
 """
 from __future__ import annotations
 
+import pickle
 import threading
 
 import numpy as np
@@ -136,6 +138,10 @@ class GlooComm(BlockComm):
         if self.size == 1:
             return [obj]
         import torch.distributed as dist
+        from ..utils import trace
+        if trace.enabled():
+            # the bytes this rank sends, pickled as all_gather_object does
+            trace.count("comm.exchange_bytes", len(pickle.dumps(obj)))
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self.group)
         return out

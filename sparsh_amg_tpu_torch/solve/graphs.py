@@ -22,9 +22,10 @@ the loop in Python.  A failure to build or launch it raises: nothing
 falls back to another loop.
 
 The kernel wrappers count their launches in ``launches`` as the Python
-code issues them; during capture nothing launches, so a capture takes
-back what the wrappers counted and every replay adds it again (a pass
-graph adds its step graph's count once per iteration it ran).
+code issues them, and the tallies (``trace.Tally``: the distributed
+solver's collectives) their own counts; during capture nothing launches,
+so a capture takes back what they counted and every replay adds it again
+(a pass graph adds its step graph's count once per iteration it ran).
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ class ChunkGraph:
     issuing fn's launches into the graph) and the graph's instantiation,
     which ``instantiate()`` or the first replay does (a graph that only a
     pass graph holds as a child is never instantiated alone);
-    ``per_replay`` maps each kernel wrapper to its launches per
-    replay."""
+    ``per_replay`` maps each kernel wrapper and tally to its launches
+    per replay."""
 
     def __init__(self, fn, bufs: tuple, capture: bool, pool=None):
         self.fn, self.bufs = fn, bufs
@@ -65,7 +66,7 @@ class ChunkGraph:
                 buf.copy_(out)
 
     def _capture(self, pool) -> None:
-        wrappers = kernel_wrappers()
+        wrappers = (*kernel_wrappers(), *trace.tallies())
         before = [w.launches for w in wrappers]
         # keep_graph: the cudaGraph_t stays readable (raw_cuda_graph) for
         # the pass graphs that take this graph as a child

@@ -15,7 +15,9 @@ no environment variable switches anything: a caller turns it on with
   the parent span, a request id shared by every span under one root span,
   and attributes; ``span()`` around a block, ``spanned()`` around each
   call of a function.
-* **Counters**: ``count(name, n)``.
+* **Counters**: ``count(name, n)``; a ``Tally`` counts whether tracing
+  is on or off, and graphs replay it (the distributed solver's
+  collectives).
 * **Device intervals**: a pair of CUDA events around a device operation
   (``device_op``, or events the caller already has: ``note_events``).
   ``anchor()`` records an event on an idle device just after a
@@ -195,6 +197,31 @@ class timed:
 def count(name: str, n: int = 1) -> None:
     if _T.on:
         _T.counters[name] = _T.counters.get(name, 0) + n
+
+
+class Tally:
+    """A count kept whether tracing is on or off, in ``launches`` as a
+    kernel wrapper keeps its launches: a capture takes back what it added
+    and every replay adds it again (``solve/graphs.py``, a pass graph's
+    step once per iteration it ran), so work issued inside graphs is
+    counted as often as it runs.  ``tallies()`` lists every one."""
+
+    __slots__ = ("__name__", "launches")
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+        _TALLIES.append(self)
+
+    def add(self, n: int = 1) -> None:
+        self.launches += n
+
+
+_TALLIES = []
+
+
+def tallies() -> tuple:
+    return tuple(_TALLIES)
 
 
 # ---------------------------------------------------------------------------

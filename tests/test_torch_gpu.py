@@ -849,6 +849,52 @@ def test_nccl_ranks_that_raise_after_a_captured_solve_exit(cuda):
     assert '"capture": true' in text, text
 
 
+def test_dist_nccl_collectives_replay_as_their_eager_twin(cuda):
+    """NCCL ranks (four where there are four cards, else two) at
+    poisson3d(96), process-local set-up, device loop: the collectives a
+    captured solve counts (the tally ``dist.collectives``, which each
+    replay adds again, a WHILE body's once an iteration) equal those its
+    eager twin issues one by one, and x has the same bits."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs 2 CUDA cards: NCCL ranks take one card each")
+    from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
+    res = launch_processes(4 if cards >= 4 else 2, "poisson3d", 96,
+                           setup="blocked", device="cuda", backend="nccl",
+                           loop_mode="device", compare_eager=True,
+                           timeout=600)
+    assert len({(r["iterations"], r["passes"], r["collectives"])
+                for r in res}) == 1
+    for r in res:
+        assert r["capture"] and r["same_bits"], r
+        assert r["host_reads"] == r["passes"], r
+        assert r["collectives"] == r["eager"]["collectives"], r
+        assert r["collectives"] > 3 * r["iterations"], r
+
+
+def test_rank_cell_at_96_reports_four_cards(cuda):
+    """The four-rank cell's traffic kind at poisson3d(96) through
+    ``run_cell`` on four NCCL ranks: correct, four cards counted, and the
+    per-layer metrics of its ``--trace 1`` line read."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: the cell's ranks take one each")
+    from ranks_cell import load_bench
+    from amgbench import harness
+    spec = harness.load_cell(load_bench(), "p3d304x4.rhs")
+    spec["config"] = dict(spec["config"], size={"n": 96}, cache=False)
+    result, record = harness.run_cell(spec, 2 ** 33 + 1, 3.0, True, "cuda")
+    assert result["correct"] and result["failed"] == 0, result
+    assert result["device"]["count"] == 4, result["device"]
+    assert "H100" in result["device"]["kind"]
+    m = result["metrics"]
+    for name in ("iterations_per_solve", "host_reads_per_solve",
+                 "blocked_setup_s", "collectives_per_solve",
+                 "device_idle_pct"):
+        assert name in m, (name, m)
+    assert 0 < m["solve_roofline_pct"]["value"] <= 100, m
+    assert all(r["host_reads"] == r["passes"] for r in record["requests"])
+
+
 def _flagship_small(cuda, **kw):
     """The flagship's parameters on poisson3d(24) in the device loop mode
     (chunk 4), its rhs on the card."""
