@@ -88,7 +88,14 @@ Phases (any failure raises, and the script exits non-zero):
      the worker's warm() (12 / 2 +-1, relres <= 1e-8, the row blocks
      tiling the domain, no rank holding the global fine matrix); NCCL with more ranks than cards refused;
      the DIA interior and the ELL kernels on rank blocks of that 96^3
-     hierarchy against their plain versions, timed; and (8f, with two
+     hierarchy against their plain versions, timed; DistDia's products
+     (every tail, fp32 and bf16 bands) on ranks 0, 1 and 3 of
+     poisson3d(96), halos cut from the whole vector: the local and the
+     boundary launch (dia_fused_boundary), one each, against the plain
+     version on the whole matrix and bit for bit the rank's rows of one
+     serial launch on it; the boundary launch alone timed on rank 1's
+     block of poisson3d(304) over four ranks (the four-card cell's fine
+     level, 7,023,616 rows, halo 92,416); and (8f, with two
      cards or more) the process-local solve on two NCCL ranks, one card
      each, in the device and the host loop mode, its loop captured with
      the halos and all-reduces inside the graphs: counts 12 / 2 (+-1),
@@ -671,12 +678,15 @@ HOST_CONFIGS = ("aniso2d_1024_eps1e-3_rot45_aggW_bicgstab",)
 def wrapper_of(kernel_name):
     """The wrapper of one of the package's kernels, by the kernel's name in
     a profiler trace (dia_tile's second template argument is the tail,
-    the index of its wrapper in dia_spmv.WRAPPERS; the loop guard is
-    loop_guard); None for others."""
+    the index of its wrapper in dia_spmv.WRAPPERS; dia_boundary is
+    dia_fused_boundary's; the loop guard is loop_guard); None for
+    others."""
     from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
     m = re.search(r"::dia_tile<[^,]+, (\d+),", kernel_name)
     if m:
         return WRAPPERS[int(m.group(1))].__name__
+    if "::dia_boundary<" in kernel_name:
+        return "dia_fused_boundary"
     for name in ("block_ell_spmv", "ell_spmv", "dia_finish64", "loop_guard"):
         if f"::{name}" in kernel_name:
             return name
@@ -1267,6 +1277,183 @@ def dist_shard_cases(rng, results, dev):
     torch.cuda.empty_cache()
 
 
+def cut_halos(rank, size, whole):
+    """A RankGroup with no process group whose halos are cut from `whole`,
+    the vector the product multiplies; NaN at an end of the domain, so a
+    launch that read a missing neighbour's entries shows it."""
+    import torch
+    from sparsh_amg_tpu_torch.parallel.dist import RankGroup
+
+    @dataclasses.dataclass(frozen=True)
+    class Cut(RankGroup):
+        def halo_start(self, x, h):
+            n = x.shape[0]
+            r0 = self.rank * n
+            nan = torch.full((h,), float("nan"), device=x.device)
+            left = whole[r0 - h:r0] if self.rank > 0 else nan
+            right = whole[r0 + n:r0 + n + h] \
+                if self.rank < self.size - 1 else nan
+            return lambda: (left, right)
+
+    return Cut(rank, size)
+
+
+def poisson3d_slab_bands(m, z0, z1):
+    """The 7-point stencil's bands of poisson3d(m) (6 on the diagonal, -1
+    towards each interior neighbour) on the rows of z-planes z0 .. z1 - 1:
+    a rank's block of the fine level when the ranks split the planes."""
+    i = np.arange(z0 * m * m, z1 * m * m)
+    ix, iy, iz = i % m, (i // m) % m, i // (m * m)
+    inside = (iz > 0, iy > 0, ix > 0, None, ix < m - 1, iy < m - 1,
+              iz < m - 1)
+    bands = np.zeros((7, len(i)), dtype=np.float32)
+    for d, keep in enumerate(inside):
+        bands[d] = 6.0 if keep is None else np.where(keep, -1.0, 0.0)
+    return bands, (-m * m, -m, -1, 0, 1, m, m * m)
+
+
+# the four-card cell's fine level: poisson3d(304) over four ranks, a
+# rank's block of 76 z-planes (7,023,616 rows, halo 92,416)
+P304, P304_RANKS = 304, 4
+
+
+def dist_boundary_cases(rng, results, dev):
+    """DistDia's fused products on ranks 0, 1 and 3 of poisson3d(DIST_M)
+    over DIST_RANKS ranks, fp32 and bf16 bands, halos cut from the whole
+    vector: each tail's local launch plus boundary launch against
+    dia_fused_plain of the whole matrix on the rank's rows, two runs with
+    the same bits, and bit for bit the rank's rows of one serial launch
+    on the whole matrix; one launch of each, the boundary's reading no
+    halo at an end the rank lacks.  Then the boundary launch of a CHEB
+    step alone on rank 1's block of the four-card cell's fine level (both
+    ends), against its plain version and timed."""
+    import torch
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.ops import dia_spmv as K
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_dia
+    from sparsh_amg_tpu_torch.parallel.dist import (DistDia, RankGroup,
+                                                    csr_to_dist)
+    from sparsh_amg_tpu_torch.parallel.partition import Partition
+    from sparsh_amg_tpu_torch.utils.timing import l2_flush_buffer
+    A = poisson3d(DIST_M)
+    part = Partition.make(A.shape[0], DIST_RANKS)
+    vec = lambda k: torch.from_numpy(
+        rng.standard_normal(k).astype(np.float32)).to(dev)
+    v, b, x = vec(part.n_pad), vec(part.n_pad), vec(part.n_pad)
+    dinv = torch.from_numpy(rng.uniform(0.1, 0.2, part.n_pad).astype(
+        np.float32)).to(dev)
+    for dtype, dt in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        W = csr_to_dia(A, dtype, part.n_pad, device=dev)
+        P = lambda *a, **k: (lambda: K.dia_fused_plain(*a, **k))
+        whole = {
+            "dia_spmv": (lambda: K.dia_spmv(W.bands, v, W.offsets),
+                         P(K.SPMV, W.bands, W.offsets, v)),
+            "dia_residual": (
+                lambda: K.dia_residual(W.bands, v, b, W.offsets),
+                P(K.RESIDUAL, W.bands, W.offsets, v, b=b)),
+            "dia_dinv_residual": (
+                lambda: K.dia_dinv_residual(W.bands, v, b, dinv, W.offsets),
+                P(K.DINV_RESIDUAL, W.bands, W.offsets, v, b=b, dinv=dinv)),
+            "dia_jacobi_sweep": (
+                lambda: K.dia_jacobi_sweep(W.bands, v, b, dinv, 0.7,
+                                           W.offsets),
+                P(K.JACOBI, W.bands, W.offsets, v, b=b, dinv=dinv, x=v,
+                  s0=0.7)),
+            "dia_cheb_step": (
+                lambda: K.dia_cheb_step(W.bands, x, v, b, dinv, 0.3, 0.9,
+                                        W.offsets),
+                P(K.CHEB, W.bands, W.offsets, v, b=b, dinv=dinv, x=x,
+                  s0=0.3, s1=0.9)),
+        }
+        for rank in (0, 1, DIST_RANKS - 1):
+            op = csr_to_dist(A, part, part, RankGroup(rank, DIST_RANKS),
+                             dtype=dtype, device=dev)
+            assert isinstance(op, DistDia) and op.offsets == W.offsets
+            op = dataclasses.replace(op, ranks=cut_halos(rank, DIST_RANKS,
+                                                         v))
+            rows = slice(rank * op.n_loc, (rank + 1) * op.n_loc)
+            vl, bl, dl, xl = v[rows], b[rows], dinv[rows], x[rows]
+            block = {
+                "dia_spmv": lambda: op.spmv(vl),
+                "dia_residual": lambda: op.residual(vl, bl),
+                "dia_dinv_residual": lambda: op.dinv_residual(vl, bl, dl),
+                "dia_jacobi_sweep": lambda: op.jacobi_sweep(vl, bl, dl, 0.7),
+                "dia_cheb_step":
+                    lambda: op.cheb_step(xl, vl, bl, dl, 0.3, 0.9),
+            }
+            ends = K.boundary_rows(op.offsets, op.n_loc, rank > 0,
+                                   rank < DIST_RANKS - 1)
+            for name, product in block.items():
+                serial, plain = whole[name]
+                got, launches = counted(product)
+                want = serial()
+                torch.cuda.synchronize()
+                launched = {w: c for w, c in launches.items() if c}
+                if launched != {name: 1, "dia_fused_boundary": 1}:
+                    raise AssertionError(f"{name} rank {rank}: launched "
+                                         f"{launched}")
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                serial_bits = all(torch.equal(g, w[rows])
+                                  for g, w in zip(got, want, strict=True))
+                compare(f"dia_fused_boundary {name} rank {rank}/"
+                        f"{DIST_RANKS} poisson3d({DIST_M}) {dt} "
+                        f"n_loc={op.n_loc}", product,
+                        lambda: tuple(t[rows] for t in (
+                            plain() if name == "dia_cheb_step"
+                            else (plain(),))),
+                        results, time_it=False, same_bits=True,
+                        extra={"serial_same_bits": serial_bits,
+                               "boundary_rows": list(ends), "h": op.h})
+                if not serial_bits:
+                    raise AssertionError(
+                        f"{name} rank {rank} {dt}: the rank's rows differ "
+                        f"from the serial launch on the whole matrix")
+        del W
+    del v, b, x, dinv
+    torch.cuda.empty_cache()
+
+    # the boundary launch alone at the four-card cell's rank-block shape
+    planes = P304 // P304_RANKS
+    bands, offs = poisson3d_slab_bands(P304, planes, 2 * planes)
+    n, h = bands.shape[1], P304 * P304
+    bands = torch.from_numpy(bands).to(dev).to(torch.bfloat16)
+    d, r, x, left, right = vec(n), vec(n), vec(n), vec(h), vec(h)
+    dinv = torch.full((n,), 1 / 6, device=dev)
+    outs, plain_outs = ([torch.zeros(n, device=dev) for _ in range(3)]
+                        for _ in range(2))
+    lo_rows, hi_row = K.boundary_rows(offs, n, True, True)
+    rows = lo_rows + n - hi_row
+    nz = int(torch.count_nonzero(bands[:, :lo_rows])
+             + torch.count_nonzero(bands[:, hi_row:]))
+    # the band table's boundary rows, the tail's vectors there (CHEB: d,
+    # r, dinv, x read; x', r', d' written) and both halos read once
+    real = (bands.element_size() * len(offs) * rows
+            + 4 * rows * DIA_VECTORS["dia_cheb_step"] + 4 * 2 * h)
+
+    def kernel():
+        K.dia_fused_boundary(K.CHEB, bands, offs, d, left, right, outs,
+                             True, True, b=r, dinv=dinv, x=x, s0=0.3, s1=0.9)
+        return tuple(outs)
+
+    def plain():
+        K.dia_boundary_plain(K.CHEB, bands, offs, d, left, right,
+                             plain_outs, True, True, b=r, dinv=dinv, x=x,
+                             s0=0.3, s1=0.9)
+        return tuple(plain_outs)
+
+    compare(f"dia_fused_boundary p3d{P304}x{P304_RANKS} rank 1/{P304_RANKS}"
+            f" L0 CHEB bf16 n_loc={n} h={h}", kernel, plain, results, True,
+            work=(real, real, 2 * nz), same_bits=True,
+            flush=l2_flush_buffer(real), graph=True,
+            library=("none: the JAX package corrects the boundary rows "
+                     "with plain slices", {}),
+            extra={"boundary_rows": [lo_rows, hi_row], "h": h})
+    del bands, d, r, x, dinv, outs, plain_outs
+    torch.cuda.empty_cache()
+
+
 def dist_phase(gpu_name, rng, results, dev):
     """Phase 8: the distributed solver in child processes.  Returns the
     launch counts of every rank's solves."""
@@ -1289,11 +1476,11 @@ def dist_phase(gpu_name, rng, results, dev):
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
     bench_loop_check("bench_torch.py --dist 1", out)
-    # DistDia smooths through the generic residual and SpMV (as the JAX
-    # package's distributed levels do): the fused tails stay unlaunched
-    for name in ("dia_spmv", "ell_spmv"):
+    # one rank's DistDia takes the serial fused products: no boundary
+    for name in ("dia_spmv", "dia_cheb_step", "ell_spmv"):
         assert out["launches"][name] > 0, \
             f"{name} not launched during the --dist 1 bench's solves"
+    assert out["launches"]["dia_fused_boundary"] == 0, out["launches"]
     paths.append(out["launches"])
     print(f"phase_s 8a {time.perf_counter() - t0:.1f} bench --dist 1 nccl "
           f"iters={out['iterations']} passes={out['refine_passes']} "
@@ -1309,8 +1496,9 @@ def dist_phase(gpu_name, rng, results, dev):
         assert all(abs(r["iterations"] - 12) <= 1 for r in runs), runs
         assert all(r["relres_host_fp64"] <= 1e-8 for r in runs), runs
         for r in runs:
-            assert r["launches"]["dia_spmv"] > 0, r
-            assert r["launches"]["ell_spmv"] > 0, r
+            for name in ("dia_spmv", "dia_cheb_step", "dia_fused_boundary",
+                         "ell_spmv"):
+                assert r["launches"][name] > 0, (name, r)
             paths.append(r["launches"])
     print(json.dumps({"dryrun_multichip": [
         {k: r[k] for k in ("rank", "ranks", "backend", "device", "global",
@@ -1357,6 +1545,7 @@ def dist_phase(gpu_name, rng, results, dev):
     # (e) the kernels at rank-block shapes
     t0 = time.perf_counter()
     dist_shard_cases(rng, results, dev)
+    dist_boundary_cases(rng, results, dev)
     print(f"phase_s 8e {time.perf_counter() - t0:.1f}", flush=True)
 
     # (f) NCCL ranks, one card each, capturing their loop
@@ -1592,6 +1781,11 @@ def main(nside=192, dev="cuda"):
         entry("dia_fused", "dia_spmv.cu", fused,
               "dia_cheb_step L0 cycle operator bf16",
               "sparsh_amg_tpu/ops/pallas_spmv.py:132"),
+        # the port's own: a rank block's boundary rows, plain slices in
+        # the JAX package
+        entry("dia_fused_boundary", "dia_spmv.cu", ("dia_fused_boundary",),
+              f"dia_fused_boundary p3d{P304}x{P304_RANKS}",
+              "sparsh_amg_tpu/parallel/dist.py:137"),
         entry("ell_spmv", "ell_spmv.cu", ("ell_spmv",), "ell_spmv R0",
               "sparsh_amg_tpu/ops/gell.py:266"),
         entry("block_ell_spmv", "block_ell_spmv.cu", ("block_ell_spmv",),

@@ -40,6 +40,12 @@ _ENTRIES = {
     # v, b, dinv, x, s0, s1, y0, y1, y2, stream
     "dia_fused_launch": [_i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _f, _f,
                          _p, _p, _p, _p],
+    # band_bf16, tail, bands, n_bands, offsets, n_pad, v, left, right, h,
+    # lo, hi, b, dinv, x, s0, s1, y0, y1, y2, stream: the boundary rows of
+    # a rank block (lo, hi: whether it has a left / right neighbour)
+    "dia_fused_boundary_launch": [_i, _i, _p, _i, _p, _i, _p, _p, _p, _i,
+                                  _i, _i, _p, _p, _p, _f, _f, _p, _p, _p,
+                                  _p],
     # band_bf16, n_bands: the instantiation's band count (0: run-time
     # count); band_bf16, n_bands, offsets: the halo staged around each
     # tile.  No CUDA call

@@ -44,6 +44,10 @@
 //    multiple of 4.
 //  * Band streams are read with evict-first loads so they do not push the
 //    reused v planes out of L2.
+//  * On a rank's row block (parallel/dist.py::DistDia) the same launch runs
+//    on the block alone while the halo exchange is in flight, and
+//    dia_fused_boundary_launch (dia_boundary) then redoes the tail on the
+//    few rows whose bands reach the neighbours' entries.
 // Sums run over d in ascending order in fp32 with one fused multiply-add
 // per band, as the first port of this kernel did (same bits).
 //
@@ -333,6 +337,94 @@ dia_tile(const Args a) {
                       a.y2);
 }
 
+// The boundary rows of a rank's row block (parallel/dist.py::DistDia).  A
+// rank launches dia_tile on its block with v = 0 outside it while the
+// halo exchange is in flight; that gets every row right whose bands reach
+// no neighbour's entries.  Once the halo has arrived, this launch redoes
+// the tail from scratch on the rest: rows [0, lo_rows) and [hi_row,
+// n_pad), reading v from [left | v | right] (left: the h entries before
+// the block, right: the h after it), and overwrites what dia_tile wrote
+// there.  Blocks [0, lo_tiles) tile the first range, the others the
+// second.  A row's arithmetic is dia_tile's (bands summed in ascending
+// order, one fused multiply-add each, tail_store), so the rows carry the
+// bits one launch on the whole matrix gives them.  The ranges are a few
+// planes (2.6 % of a 3-D Poisson block of 76 planes), so v is read with
+// scalar loads and nothing is staged.
+struct BoundaryArgs {
+  Args a;                       // a.halo unused
+  const float *left, *right;
+  int h;
+  int lo_rows, hi_row;          // multiples of the rows a thread owns
+  int lo_tiles;
+};
+
+// R entries of [left | v | right] from block index j0 on (0 beyond it)
+template <int R>
+__device__ __forceinline__ void ext_window(const float* __restrict__ v,
+                                           const float* __restrict__ left,
+                                           const float* __restrict__ right,
+                                           int64_t n, int h, int64_t j0,
+                                           float (&f)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int64_t j = j0 + k;
+    float w = 0.f;
+    if (j < 0) {
+      if (j >= -h) w = __ldg(left + h + j);
+    } else if (j < n) {
+      w = __ldg(v + j);
+    } else if (j < n + h) {
+      w = __ldg(right + (j - n));
+    }
+    f[k] = w;
+  }
+}
+
+template <typename BandT, int TAIL, int NB>
+__global__ void __launch_bounds__(kThreads)
+dia_boundary(const BoundaryArgs ba) {
+  constexpr int R = Rows<BandT>::value;
+  constexpr int TR = tile_rows<BandT>();
+  constexpr int C = NB > 0 && NB < kChunk ? NB : kChunk;
+  const Args& a = ba.a;
+  const int64_t n = a.n_pad;
+  const int nb = NB > 0 ? NB : a.n_bands;
+  const int blk = blockIdx.x;
+  const bool first = blk < ba.lo_tiles;
+  const int64_t row0 = first ? (int64_t)blk * TR
+                             : ba.hi_row + (int64_t)(blk - ba.lo_tiles) * TR;
+  const int64_t i0 = row0 + (int64_t)threadIdx.x * R;
+  if (i0 >= (first ? (int64_t)ba.lo_rows : n)) return;
+  const BandT* bands = static_cast<const BandT*>(a.bands);
+
+  float vb[R], vd[R], vx[R];
+  if constexpr (TailVecs<TAIL>::n >= 1) load_vec<R>(a.b + i0, vb);
+  if constexpr (TailVecs<TAIL>::n >= 2) load_vec<R>(a.dinv + i0, vd);
+  if constexpr (TailVecs<TAIL>::n >= 3) load_vec<R>(a.x + i0, vx);
+  float acc[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) acc[k] = 0.f;
+  uint4 bv[C];
+#pragma unroll
+  for (int d0 = 0; d0 < nb; d0 += C) {
+    load_bands<BandT, C>(bands, n, i0, d0, nb, bv);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (d0 + c < nb) {
+        float w[R], av[R];
+        ext_window<R>(a.v, ba.left, ba.right, n, ba.h,
+                      i0 + a.offs.v[d0 + c], w);
+        widen(bv[c], av);
+#pragma unroll
+        for (int k = 0; k < R; ++k) acc[k] += av[k] * w[k];
+      }
+  }
+  float dv[R];
+  if constexpr (TAIL == CHEB) load_vec<R>(a.v + i0, dv);
+  tail_store<TAIL, R>(acc, vb, vd, vx, dv, a.s0, a.s1, i0, a.y0, a.y1,
+                      a.y2);
+}
+
 template <typename BandT, int TAIL, int NB>
 int launch_one(const Args& a, cudaStream_t s) {
   constexpr int TR = tile_rows<BandT>();
@@ -342,8 +434,19 @@ int launch_one(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename BandT, int NB>
-int launch_tail(int tail, const Args& a, cudaStream_t s) {
+template <typename BandT, int TAIL, int NB>
+int launch_one(const BoundaryArgs& ba, cudaStream_t s) {
+  constexpr int TR = tile_rows<BandT>();
+  const unsigned tiles =
+      (unsigned)(ba.lo_tiles + (ba.a.n_pad - ba.hi_row + TR - 1) / TR);
+  if (tiles == 0) return (int)cudaGetLastError();
+  dia_boundary<BandT, TAIL, NB><<<tiles, kThreads, 0, s>>>(ba);
+  return (int)cudaGetLastError();
+}
+
+// Args for dia_tile, BoundaryArgs for dia_boundary
+template <typename BandT, int NB, typename A>
+int launch_tail(int tail, const A& a, cudaStream_t s) {
   switch (tail) {
     case SPMV: return launch_one<BandT, SPMV, NB>(a, s);
     case RESIDUAL: return launch_one<BandT, RESIDUAL, NB>(a, s);
@@ -391,6 +494,36 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// a launch's Args from the C entries' common arguments (a.halo left 0);
+// false when they are out of range: the band count, n_pad, a pointer not
+// 16-byte aligned
+bool fill_args(Args& a, const void* bands, int n_bands, const int* offsets,
+               int n_pad, const float* v, const float* b, const float* dinv,
+               const float* x, float s0, float s1, float* y0, float* y1,
+               float* y2) {
+  if (n_bands < 1 || n_bands > kMaxBands || n_pad < 0 ||
+      n_pad % kRowAlign != 0)
+    return false;
+  const void* ptrs[] = {bands, v, b, dinv, x, y0, y1, y2};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  a = Args{};
+  a.bands = bands;
+  for (int d = 0; d < n_bands; ++d) a.offs.v[d] = offsets[d];
+  a.n_bands = n_bands;
+  a.n_pad = n_pad;
+  a.v = v;
+  a.b = b;
+  a.dinv = dinv;
+  a.x = x;
+  a.s0 = s0;
+  a.s1 = s1;
+  a.y0 = y0;
+  a.y1 = y1;
+  a.y2 = y2;
+  return true;
+}
+
 }  // namespace
 
 // band_bf16: 0 = fp32 bands, 1 = bf16 bands.  offsets: host array of
@@ -402,33 +535,56 @@ extern "C" int dia_fused_launch(int band_bf16, int tail, const void* bands,
                                 const float* dinv, const float* x, float s0,
                                 float s1, float* y0, float* y1, float* y2,
                                 void* stream) {
-  if (n_bands < 1 || n_bands > kMaxBands || n_pad < 0 ||
-      n_pad % kRowAlign != 0)
+  Args a;
+  if (!fill_args(a, bands, n_bands, offsets, n_pad, v, b, dinv, x, s0, s1,
+                 y0, y1, y2))
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {bands, v, b, dinv, x, y0, y1, y2};
-  for (const void* p : ptrs)
-    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
   if (n_pad == 0) return (int)cudaGetLastError();
-  Args a = {};
-  a.bands = bands;
-  for (int d = 0; d < n_bands; ++d) a.offs.v[d] = offsets[d];
-  a.n_bands = n_bands;
-  a.n_pad = n_pad;
   a.halo = choose_halo(offsets, n_bands,
                        band_bf16 ? tile_rows<__nv_bfloat16>()
                                  : tile_rows<float>());
-  a.v = v;
-  a.b = b;
-  a.dinv = dinv;
-  a.x = x;
-  a.s0 = s0;
-  a.s1 = s1;
-  a.y0 = y0;
-  a.y1 = y1;
-  a.y2 = y2;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (band_bf16) return launch<__nv_bfloat16>(tail, a, s);
   return launch<float>(tail, a, s);
+}
+
+// The boundary launch of a rank block (dia_boundary): the tail on the
+// rows whose bands reach the left neighbour's entries (lo != 0) and the
+// right one's (hi != 0), v read from [left | v | right], written into
+// y0..y2 over what dia_fused_launch wrote.  left and right hold h entries
+// each; every |offset| must be at most h.  The other arguments are
+// dia_fused_launch's.
+extern "C" int dia_fused_boundary_launch(
+    int band_bf16, int tail, const void* bands, int n_bands,
+    const int* offsets, int n_pad, const float* v, const float* left,
+    const float* right, int h, int lo, int hi, const float* b,
+    const float* dinv, const float* x, float s0, float s1, float* y0,
+    float* y1, float* y2, void* stream) {
+  BoundaryArgs ba = {};
+  if (h < 0 || !fill_args(ba.a, bands, n_bands, offsets, n_pad, v, b, dinv,
+                          x, s0, s1, y0, y1, y2))
+    return (int)cudaErrorInvalidValue;
+  int reach_lo = 0, reach_hi = 0;   // rows the bands reach past each end
+  for (int d = 0; d < n_bands; ++d) {
+    if (std::abs(offsets[d]) > h) return (int)cudaErrorInvalidValue;
+    reach_lo = offsets[d] < -reach_lo ? -offsets[d] : reach_lo;
+    reach_hi = offsets[d] > reach_hi ? offsets[d] : reach_hi;
+  }
+  const int R = band_bf16 ? Rows<__nv_bfloat16>::value : Rows<float>::value;
+  const int TR = band_bf16 ? tile_rows<__nv_bfloat16>() : tile_rows<float>();
+  const int lo_rows = (reach_lo + R - 1) / R * R;
+  const int hi_row = (n_pad - reach_hi) / R * R;
+  ba.lo_rows = !lo ? 0 : lo_rows < n_pad ? lo_rows : n_pad;
+  ba.hi_row = !hi ? n_pad : hi_row > ba.lo_rows ? hi_row : ba.lo_rows;
+  ba.lo_tiles = (ba.lo_rows + TR - 1) / TR;
+  ba.left = left;
+  ba.right = right;
+  ba.h = h;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the run-time-count instantiation: a few planes of rows, not worth
+  // compiling each band count in
+  if (band_bf16) return launch_tail<__nv_bfloat16, 0>(tail, ba, s);
+  return launch_tail<float, 0>(tail, ba, s);
 }
 
 // The band count of the instantiation dia_fused_launch runs for n_bands

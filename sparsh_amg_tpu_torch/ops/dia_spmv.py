@@ -3,6 +3,12 @@
 behind ``dia_residual``, ``dia_dinv_residual``, ``dia_jacobi_sweep`` and
 ``dia_cheb_step``).  The kernel is ``csrc/dia_spmv.cu``.
 
+``dia_fused_boundary`` is the port's own: on a rank's row block
+(``parallel/dist.py::DistDia``) it redoes a tail on the rows whose bands
+reach the neighbours' entries, from the received halos, after the tail's
+launch on the block alone (the JAX package corrects those rows with
+plain slices).
+
 Every wrapper takes the kernel's plain PyTorch version (shifted slices)
 for tensors on the CPU, launches the CUDA kernel for tensors on the card,
 and raises for anything else.  Each wrapper counts its kernel launches in
@@ -45,7 +51,11 @@ def dia_fused_plain(tail, bands, offsets, v, b=None, dinv=None, x=None,
                     s0=0.0, s1=0.0):
     """The plain PyTorch version of every kernel entry: `tail` applied to
     az = A v (see csrc/dia_spmv.cu for the five tails)."""
-    az = dia_plain(bands, offsets, v)
+    return _tail_plain(tail, dia_plain(bands, offsets, v), v, b, dinv, x,
+                       s0, s1)
+
+
+def _tail_plain(tail, az, v, b, dinv, x, s0, s1):
     if tail == SPMV:
         return az
     if tail == RESIDUAL:
@@ -56,6 +66,38 @@ def dia_fused_plain(tail, bands, offsets, v, b=None, dinv=None, x=None,
         return x + s0 * dinv * (b - az)
     r2 = b - dinv * az                  # CHEB: v = d, b = r
     return x + v, r2, s0 * v + s1 * r2
+
+
+def boundary_rows(offsets: tuple, n_pad: int, lo: bool, hi: bool):
+    """(lo_rows, hi_row): the rows of a rank's block whose bands reach past
+    it, [0, lo_rows) into the left neighbour's rows (when `lo`, there is
+    one) and [hi_row, n_pad) into the right one's (when `hi`)."""
+    lo_rows = min(max(0, -min(offsets)), n_pad) if lo else 0
+    hi_row = max(n_pad - max(0, max(offsets)), lo_rows) if hi else n_pad
+    return lo_rows, hi_row
+
+
+def dia_boundary_plain(tail, bands, offsets, v, left, right, outs, lo, hi,
+                       b=None, dinv=None, x=None, s0=0.0, s1=0.0):
+    """The plain version of dia_fused_boundary: dia_fused_plain's tail on
+    the extended vector [left | v | right], on the boundary rows only,
+    written into `outs`."""
+    n, h = v.shape[0], left.shape[0]
+    ext = torch.cat([left, v, right])
+    lo_rows, hi_row = boundary_rows(offsets, n, lo, hi)
+    for r0, r1 in ((0, lo_rows), (hi_row, n)):
+        if r0 == r1:
+            continue
+        az = torch.zeros(r1 - r0, dtype=torch.promote_types(bands.dtype,
+                                                            v.dtype),
+                         device=v.device)
+        for d, off in enumerate(offsets):
+            az = az + bands[d, r0:r1] * ext[h + off + r0: h + off + r1]
+        rows = lambda t: None if t is None else t[r0:r1]
+        got = _tail_plain(tail, az, v[r0:r1], rows(b), rows(dinv), rows(x),
+                          s0, s1)
+        for o, g in zip(outs, got if isinstance(got, tuple) else (got,)):
+            o[r0:r1] = g
 
 
 def _check(bands, offsets, vecs):
@@ -157,7 +199,50 @@ def dia_cheb_step(bands, x, d, r, dinv, a: float, c: float, offsets: tuple):
                 s0=a, s1=c, n_out=3)
 
 
+def dia_fused_boundary(tail, bands, offsets, v, left, right, outs, lo, hi,
+                       b=None, dinv=None, x=None, s0=0.0, s1=0.0):
+    """The boundary launch of a rank block (parallel/dist.py::DistDia):
+    `outs` hold what a launch of `tail` on the block alone wrote (v = 0
+    outside it); this redoes the tail on the rows whose bands reach a
+    neighbour's entries (``boundary_rows``), v read from [left | v |
+    right] (h entries each side, h >= every |offset|), in place.  `lo`,
+    `hi`: the block has a left / right neighbour.  Both ends take one
+    launch; none where neither end has rows to redo."""
+    _check(bands, offsets, [t for t in (v, b, dinv, x, *outs)
+                            if t is not None])
+    h = left.shape[0]
+    for t in (left, right):
+        if t.shape != (h,) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != v.device:
+            raise ValueError(f"halos must be contiguous fp32 ({h},) on "
+                             f"{v.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+    if max(abs(o) for o in offsets) > h:
+        raise ValueError(f"offsets {offsets} reach past a halo of {h}")
+    if boundary_rows(offsets, v.shape[0], lo, hi) == (0, v.shape[0]):
+        return
+    if v.device.type == "cpu":
+        dia_boundary_plain(tail, bands, offsets, v, left, right, outs, lo,
+                           hi, b, dinv, x, s0, s1)
+        return
+    if v.device.type != "cuda":
+        raise ValueError(f"no DIA kernel for device {v.device}")
+    from .. import _build
+    _check_aligned([t for t in (bands, v, b, dinv, x, *outs)
+                    if t is not None])
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ys = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    rc = _build.lib().dia_fused_boundary_launch(
+        int(bands.dtype == torch.bfloat16), tail, bands.data_ptr(),
+        bands.shape[0], _c_offsets(offsets), bands.shape[1], ptr(v),
+        ptr(left), ptr(right), h, int(lo), int(hi), ptr(b), ptr(dinv),
+        ptr(x), float(s0), float(s1), *ys,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(rc, "dia_fused_boundary")
+    dia_fused_boundary.launches += 1
+
+
 WRAPPERS = (dia_spmv, dia_residual, dia_dinv_residual, dia_jacobi_sweep,
-            dia_cheb_step)
+            dia_cheb_step, dia_fused_boundary)
 for _w in WRAPPERS:
     _w.launches = 0

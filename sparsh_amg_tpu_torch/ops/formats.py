@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from .._native import csr_arrays, get_lib
 from ..utils import trace
-from .dia_spmv import dia_residual, dia_spmv
+from .dia_spmv import (dia_cheb_step, dia_dinv_residual, dia_jacobi_sweep,
+                       dia_residual, dia_spmv)
 from .ell_spmv import ell_spmv
 from .split_rows import choose_lanes
 
@@ -41,8 +42,21 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+class FusedDia:
+    """A layout whose products are the DIA kernel with its fused tails
+    (``ops/dia_spmv.py``): a ``DiaMatrix``, or a rank's block of one
+    (``parallel/dist.py::DistDia``).  The smoothers and ``residual`` take
+    these products where the operator is one; every other layout runs an
+    SpMV and plain elementwise PyTorch.
+
+    ``residual(x, b)``: b - A x; ``dinv_residual(x, b, dinv)``: dinv (b -
+    A x); ``jacobi_sweep(x, b, dinv, omega)``: x + omega dinv (b - A x);
+    ``cheb_step(x, d, r, dinv, a, c)``: (x + d, r', a d + c r') with r' =
+    r - dinv A d."""
+
+
 @dataclasses.dataclass(frozen=True)
-class DiaMatrix:
+class DiaMatrix(FusedDia):
     """Diagonal storage. bands[d, i] = A[i, i + offsets[d]] (0 outside)."""
     bands: torch.Tensor       # (n_diags, n_pad)
     offsets: tuple            # ints, sorted
@@ -56,6 +70,18 @@ class DiaMatrix:
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """y[i] = sum_d bands[d,i] * x[i + off_d];  x padded to n_pad."""
         return dia_spmv(self.bands, x, self.offsets)
+
+    def residual(self, x, b):
+        return dia_residual(self.bands, x, b, self.offsets)
+
+    def dinv_residual(self, x, b, dinv):
+        return dia_dinv_residual(self.bands, x, b, dinv, self.offsets)
+
+    def jacobi_sweep(self, x, b, dinv, omega):
+        return dia_jacobi_sweep(self.bands, x, b, dinv, omega, self.offsets)
+
+    def cheb_step(self, x, d, r, dinv, a, c):
+        return dia_cheb_step(self.bands, x, d, r, dinv, a, c, self.offsets)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,9 +161,9 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 
 def residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """r = b - A x, one fused kernel on DIA levels."""
-    if isinstance(A, DiaMatrix):
-        return dia_residual(A.bands, x, b, A.offsets)
+    """r = b - A x, the fused product on DIA levels and rank blocks."""
+    if isinstance(A, FusedDia):
+        return A.residual(x, b)
     return b - A.spmv(x)
 
 

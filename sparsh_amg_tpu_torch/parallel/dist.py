@@ -26,10 +26,12 @@ off, and again at each replay of a graph that captured them).
 
 Operators:
 
-* ``DistDia``: the interior product is the DIA kernel on the local block
-  (``ops/dia_spmv.dia_spmv``: x = 0 outside [0, n_loc), TPU kernel 1's
-  boundary rule), then ``|off|`` rows per band corrected from the received
-  halos (plain torch).
+* ``DistDia``: every product (SpMV and the fused tails of
+  ``ops/formats.py::FusedDia``) is the DIA kernel with its tail on the
+  local block (x = 0 outside [0, n_loc), TPU kernel 1's boundary rule)
+  while the halo is in flight, then one boundary launch that redoes the
+  tail on the rows whose bands reach the neighbours' entries, from the
+  received halos (``ops/dia_spmv.dia_fused_boundary``).
 * ``DistEll``: the ELL kernel (``ops/ell_spmv.ell_spmv``) on the rank's
   rows, packed as one serial layout, over one preallocated extended
   source [left halo | x_loc | right halo] (halo mode) or the
@@ -52,10 +54,11 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-from ..ops.dia_spmv import dia_spmv
+from ..ops.dia_spmv import (CHEB, DINV_RESIDUAL, JACOBI, RESIDUAL, SPMV,
+                            dia_fused_boundary)
 from ..ops.ell_spmv import ell_plain, ell_spmv
-from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, dia_offsets,
-                           pack_ell)
+from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, FusedDia,
+                           dia_offsets, pack_ell)
 from ..utils.trace import Tally
 from .partition import Partition, _round_up
 
@@ -192,10 +195,11 @@ def pdot(x: torch.Tensor, y: torch.Tensor, ranks: RankGroup,
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class DistDia:
+class DistDia(FusedDia):
     """Row-block DIA operator: bands[d, i] = A[r*n_loc + i,
     r*n_loc + i + offsets[d]] for this rank r; offsets are global and equal
-    the local ones because block == n_loc."""
+    the local ones because block == n_loc.  Its products give this rank's
+    rows of the serial products of the whole matrix, with their bits."""
     bands: torch.Tensor       # (n_diags, n_loc)
     offsets: tuple
     h: int                    # halo width, |off| <= h
@@ -211,25 +215,42 @@ class DistDia:
         """The local block as the serial layout the kernel runs on."""
         return DiaMatrix(self.bands, self.offsets, self.n_loc, self.n_loc)
 
-    def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """(A x) on this rank's rows: the DIA kernel on the local block
-        with x = 0 outside it, then each band's |off| boundary rows
-        corrected from the neighbours' halos."""
+    def _fused(self, local, tail, v, **vecs):
+        """`local` (the serial product on the local block, v = 0 outside
+        it) while v's halo is in flight, then the boundary launch of
+        `tail` over its outputs.  One rank, or no halo: `local` alone."""
         r, size = self.ranks.rank, self.ranks.size
         if self.h == 0 or size == 1:
-            return dia_spmv(self.bands, x, self.offsets)
-        finish = self.ranks.halo_start(x, self.h)
-        y = dia_spmv(self.bands, x, self.offsets)   # overlaps the exchange
+            return local()
+        finish = self.ranks.halo_start(v, self.h)
+        out = local()                        # overlaps the exchange
         left, right = finish()
-        n, h = self.n_loc, self.h
-        for d, off in enumerate(self.offsets):
-            # the domain's ends have zero halos: nothing to correct there
-            if off > 0 and r < size - 1:
-                y[n - off:] += self.bands[d, n - off:] * right[:off]
-            elif off < 0 and r > 0:
-                a = -off
-                y[:a] += self.bands[d, :a] * left[h - a:]
-        return y
+        dia_fused_boundary(tail, self.bands, self.offsets, v, left, right,
+                           out if isinstance(out, tuple) else (out,),
+                           lo=r > 0, hi=r < size - 1, **vecs)
+        return out
+
+    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        """(A x) on this rank's rows."""
+        return self._fused(lambda: self.as_local().spmv(x), SPMV, x)
+
+    def residual(self, x, b):
+        return self._fused(lambda: self.as_local().residual(x, b),
+                           RESIDUAL, x, b=b)
+
+    def dinv_residual(self, x, b, dinv):
+        return self._fused(lambda: self.as_local().dinv_residual(x, b, dinv),
+                           DINV_RESIDUAL, x, b=b, dinv=dinv)
+
+    def jacobi_sweep(self, x, b, dinv, omega):
+        return self._fused(
+            lambda: self.as_local().jacobi_sweep(x, b, dinv, omega), JACOBI,
+            x, b=b, dinv=dinv, x=x, s0=omega)
+
+    def cheb_step(self, x, d, r, dinv, a, c):
+        return self._fused(
+            lambda: self.as_local().cheb_step(x, d, r, dinv, a, c), CHEB, d,
+            b=r, dinv=dinv, x=x, s0=a, s1=c)
 
     def spmv_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The same product in plain torch, in the promoted dtype of the

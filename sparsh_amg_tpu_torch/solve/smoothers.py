@@ -2,8 +2,9 @@
 
 Weighted Jacobi, l1-Jacobi, Chebyshev and two-stage Gauss-Seidel.  On DIA
 levels each Jacobi sweep or Chebyshev step, and each Gauss-Seidel
-residual, is one fused kernel (``ops/dia_spmv.py``); elsewhere an SpMV
-plus plain elementwise PyTorch.  All smoothers preserve zero padding
+residual, is one fused product (``ops/formats.py::FusedDia``: one kernel
+on a ``DiaMatrix``, the same kernel and a boundary launch on a rank's
+block); elsewhere an SpMV plus plain elementwise PyTorch.  All smoothers preserve zero padding
 because dinv/l1_dinv are zero there.  Chebyshev scalars are computed in
 fp32 (numpy scalars), as the JAX package computes them from its fp32
 lam_max.
@@ -12,12 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.dia_spmv import dia_cheb_step, dia_dinv_residual, dia_jacobi_sweep
-from ..ops.formats import DiaMatrix, residual, spmv
+from ..ops.formats import FusedDia, residual, spmv
 
 
 def _jacobi_like(A, b, x, sweeps, dinv, omega, zero_start):
-    """Shared weighted-Jacobi sweep loop; one fused kernel per sweep on
+    """Shared weighted-Jacobi sweep loop; one fused product per sweep on
     DIA levels."""
     if sweeps <= 0:
         return x
@@ -25,8 +25,8 @@ def _jacobi_like(A, b, x, sweeps, dinv, omega, zero_start):
         x = omega * dinv * b if omega != 1.0 else dinv * b
         sweeps -= 1
     for _ in range(sweeps):
-        if isinstance(A, DiaMatrix):
-            x = dia_jacobi_sweep(A.bands, x, b, dinv, omega, A.offsets)
+        if isinstance(A, FusedDia):
+            x = A.jacobi_sweep(x, b, dinv, omega)
         else:
             x = x + omega * dinv * (b - spmv(A, x))
     return x
@@ -58,11 +58,11 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
     sigma = theta / delta
     rho = f32(1.0) / sigma
     A = level.A
-    fused = isinstance(A, DiaMatrix)
+    fused = isinstance(A, FusedDia)
     if zero_start:
         r = level.dinv * b
     elif fused:
-        r = dia_dinv_residual(A.bands, x, b, level.dinv, A.offsets)
+        r = A.dinv_residual(x, b, level.dinv)
     else:
         r = level.dinv * (b - spmv(A, x))
     d = r / float(theta)
@@ -70,8 +70,7 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
         rho_new = f32(1.0) / (f32(2.0) * sigma - rho)
         a, c = float(rho_new * rho), float(f32(2.0) * rho_new / delta)
         if fused:
-            x, r, d = dia_cheb_step(A.bands, x, d, r, level.dinv, a, c,
-                                    A.offsets)
+            x, r, d = A.cheb_step(x, d, r, level.dinv, a, c)
         else:
             x = x + d
             r = r - level.dinv * spmv(A, d)

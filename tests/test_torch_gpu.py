@@ -755,6 +755,64 @@ def test_dist_block_kernels_match_plain(cuda, rank):
         assert not got[L.n_rows:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_dist_block_fused_products_match_the_serial_kernel(cuda, rank,
+                                                           dtype):
+    """Every fused product on rank blocks of poisson3d(48) over 4 ranks
+    (halos cut from the whole vector, NaN at the domain's ends): the
+    local launch of the tail and the boundary launch give the rank's rows
+    of one serial launch on the whole DiaMatrix of the same CSR, bit for
+    bit, with one launch of each and no halo read at an end the rank
+    lacks."""
+    import dataclasses
+    from test_torch_dist_dia import CutHalos
+    from sparsh_amg_tpu_torch.models import poisson3d
+    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.ops import dia_spmv as K
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_dia
+    from sparsh_amg_tpu_torch.parallel.dist import (DistDia, RankGroup,
+                                                    csr_to_dist)
+    from sparsh_amg_tpu_torch.parallel.partition import Partition
+    A, ranks = poisson3d(48), 4
+    part = Partition.make(A.shape[0], ranks)
+    whole = csr_to_dia(A, dtype, part.n_pad, device=cuda)
+    op = csr_to_dist(A, part, part, RankGroup(rank, ranks), dtype=dtype,
+                     device=cuda)
+    assert isinstance(op, DistDia) and op.offsets == whole.offsets
+    rng = np.random.default_rng(rank)
+    v, b, x = (_vec(rng, part.n_pad, cuda) for _ in range(3))
+    dinv = torch.from_numpy(rng.uniform(0.1, 0.2, part.n_pad).astype(
+        np.float32)).to(cuda)
+    op = dataclasses.replace(op, ranks=CutHalos(rank, ranks, glob=v))
+    rows = slice(rank * op.n_loc, (rank + 1) * op.n_loc)
+    vl, bl, dl, xl = v[rows], b[rows], dinv[rows], x[rows]
+    W, offs = whole.bands, whole.offsets
+    cases = [
+        ("dia_spmv", lambda: op.spmv(vl), lambda: K.dia_spmv(W, v, offs)),
+        ("dia_residual", lambda: op.residual(vl, bl),
+         lambda: K.dia_residual(W, v, b, offs)),
+        ("dia_dinv_residual", lambda: op.dinv_residual(vl, bl, dl),
+         lambda: K.dia_dinv_residual(W, v, b, dinv, offs)),
+        ("dia_jacobi_sweep", lambda: op.jacobi_sweep(vl, bl, dl, 0.7),
+         lambda: K.dia_jacobi_sweep(W, v, b, dinv, 0.7, offs)),
+        ("dia_cheb_step", lambda: op.cheb_step(xl, vl, bl, dl, 0.3, 0.9),
+         lambda: K.dia_cheb_step(W, x, v, b, dinv, 0.3, 0.9, offs)),
+    ]
+    for name, block, serial in cases:
+        got, launches = counted(block)
+        want = serial()
+        torch.cuda.synchronize()
+        assert {w: c for w, c in launches.items() if c} == \
+            {name: 1, "dia_fused_boundary": 1}, (name, launches)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want, strict=True):
+            assert torch.isfinite(g).all(), name
+            assert torch.equal(g, w[rows]), name
+
+
 def test_dist_one_rank_on_the_card_matches_cpu(cuda):
     """A one-rank DistAMGSolver on the card against the same solve on the
     CPU: the same counts, both to 1e-8 on the host."""
@@ -948,10 +1006,11 @@ def _profiled_wrappers(fn):
     seen = {}
     for e in prof.events():
         m = re.search(r"::dia_tile<[^,]+, (\d+),", e.name)
-        name = WRAPPERS[int(m.group(1))].__name__ if m else next(
-            (w for w in ("block_ell_spmv", "ell_spmv", "dia_finish64",
-                         "loop_guard")
-             if f"::{w}" in e.name or e.name.startswith(w)), None)
+        name = WRAPPERS[int(m.group(1))].__name__ if m else \
+            "dia_fused_boundary" if "::dia_boundary<" in e.name else next(
+                (w for w in ("block_ell_spmv", "ell_spmv", "dia_finish64",
+                             "loop_guard")
+                 if f"::{w}" in e.name or e.name.startswith(w)), None)
         if name and getattr(e.device_type, "name", "") == "CUDA":
             seen[name] = seen.get(name, 0) + 1
     return out, {k: v for k, v in counts.items() if v}, seen
