@@ -6,7 +6,6 @@ NVIDIA GPU: the counterpart of ``bench.py`` for the port.
     python3 bench_torch.py --config NAME [--n M] # an acceptance configuration
     python3 bench_torch.py --n 16 --device cpu   # plain versions, CPU
     python3 bench_torch.py --dist N [--dist-backend nccl|gloo]
-    python3 bench_torch.py --loop-mode host|device|auto --chunk K
 
 The flagship is ``bench.py``'s (``flagship.py``): 3-D 7-point Poisson,
 PMIS with a pmis2 aggressive first level, ext+i interpolation, bf16
@@ -21,29 +20,21 @@ apart; ``AMGSolver.warm()`` (kernel builds, first launches); the
 right-hand side uploaded (``rhs_upload_s``); a priming solve at tol 1e-2;
 then the best of two solves, each the first solve after priming (on a
 copy of the primed solver), with the kernels' launches counted over both.
+Each refinement pass is one launch of the device loop (``bench.py
+--loop-mode device``); ``bench.py``'s keys of its loop-placement A/B have
+no counterpart here.
 
-The Krylov loop placement is ``bench.py``'s: ``--loop-mode`` (default
-auto) and ``--chunk`` (default 12).  With auto the solver resolves a mode
-from the dispatch round trip, then the sequence above runs again in the
-other mode on the same solver (warm, prime, best of two), and the line
-reports the faster (``loop_mode``), both times (``loop_mode_ab_s``) and
-the round trip (``dispatch_rtt_ms``).
-
-Prints ONE JSON line, ``bench.py``'s keys plus ``relres_host_fp64``
+Prints ONE JSON line, ``bench.py``'s other keys plus ``relres_host_fp64``
 (recomputed with scipy from ``res.x``), the card's ``device_name`` and
 ``power_limit_w`` (nvidia-smi), ``setup_peak_bytes`` and
 ``solve_peak_bytes`` (each from a reset just before its phase; and
 ``solve_peak_reserved_bytes``, which holds the CUDA graphs' pool),
-``history``, ``launches``, ``bytes_per_nnz``, ``chunk``,
-``loop_mode_counts`` (iterations and passes per mode run),
-``masked_steps`` (steps run past the end of a pass that did not count:
-0 in both loop modes, kept as a check), ``host_reads`` (the solve's reads
-of the device by the host: one per pass in the device mode, one per chunk
-and one per pass in the host mode; ``loop_mode_host_reads`` per mode run),
-``capture_s`` and ``instantiate_s`` (every CUDA graph's capture and
-instantiation) and ``pass_graph_s`` (the device mode's pass graphs'
-assembly, instantiation and upload), inside ``warm_s``, ``reference`` and
-``ok``.
+``history``, ``launches``, ``bytes_per_nnz``, ``host_reads`` (the
+solve's reads of the device by the host: one per pass on the card; an
+eager pass also reads the guard after every step), ``capture_s`` and
+``instantiate_s`` (every CUDA graph's capture and instantiation) and
+``pass_graph_s`` (the pass graphs' assembly, instantiation and upload),
+inside ``warm_s``, ``reference`` and ``ok``.
 ``value`` is nnz/s over every SpMV of the solve (``utils/accounting.py``);
 ``vs_baseline`` and ``vs_spec`` divide it by the copy-rate and data-sheet
 speeds of light (memory rate / ``bytes_per_nnz`` of the fp32 Krylov
@@ -52,15 +43,9 @@ CPU.
 
 ``ok`` is ``converged`` and ``relres_host_fp64 <= tol``, and, where a
 reference count exists (the flagship at 192, each configuration at its
-own size, tol 1e-8), the device-mode solve's refinement passes and its
-iterations within the slack of PERF.md §2; a host-mode solve needs the
-device mode's passes and at most its iterations plus one per pass (the
-JAX package's bound; the reference's, with its slack, when no
-device-mode solve ran), or, where the reference has a host-mode count of
-its own (elasticity2d at chunk 12, whose chunks overshoot its stalled
-passes in the JAX package too: ``systems.REFERENCE``), that count's
-passes and its iterations within the slack; on the card also a measured
-copy rate no higher than the data sheet's.  A failed check prints the line with
+own size, tol 1e-8), the solve's refinement passes and its iterations
+within the slack of PERF.md §2; on the card also a measured copy rate no
+higher than the data sheet's.  A failed check prints the line with
 ``"ok": false`` and exits 1.
 
 ``--dist N`` (the counterpart of ``bench.py --dist``) solves with
@@ -80,7 +65,6 @@ from __future__ import annotations
 
 import argparse
 import copy
-import dataclasses
 import json
 import sys
 import time
@@ -120,13 +104,6 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=[*configs.NAMES, *SYSTEMS],
                     help="an acceptance configuration instead of the "
                          "flagship")
-    ap.add_argument("--loop-mode", default="auto",
-                    choices=["auto", "host", "device"],
-                    help="Krylov loop placement; auto probes the dispatch "
-                         "round trip and runs both placements")
-    ap.add_argument("--chunk", type=int, default=12,
-                    help="Krylov iterations per chunk of the host loop "
-                         "mode (one CUDA graph replay on the card)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -184,11 +161,6 @@ def _case(args, ap):
                    "refine_passes": r["refine_passes"],
                    "iteration_slack": 1 if dim == 3 else 2,
                    "source": f"systems.REFERENCE[{label!r}]['cpu']"}
-            h = systems.REFERENCE[label].get("cpu_host")
-            if h is not None and h["chunk"] == args.chunk:
-                ref["host"] = {"iterations": h["iterations"],
-                               "refine_passes": h["refine_passes"]}
-                ref["source"] += " and ['cpu_host']"
         build = lambda: systems.problem(dim, m)
     else:
         m = configs.SIZES[name] if args.n is None else args.n
@@ -210,35 +182,16 @@ def _case(args, ap):
 
 
 def checks(out: dict, tol: float) -> dict:
-    """Each check of the line: converged, host relres <= tol, the
-    device-mode counts against the reference (where there is one), the
-    host-mode counts against the reference's host-mode count with its
-    slack where it has one (``ref["host"]``), else against the device
-    mode's (or the reference's), and a measured copy rate no higher than
-    the data sheet's (on the card).
-    A line without ``loop_mode_counts`` holds its own counts as the
-    device mode's."""
+    """Each check of the line: converged, host relres <= tol, the counts
+    against the reference (where there is one), and a measured copy rate
+    no higher than the data sheet's (on the card)."""
     got = {"converged": bool(out["converged"]),
            "relres_host_fp64": out["relres_host_fp64"] <= tol}
     ref = out["reference"]
-    counts = out.get("loop_mode_counts") or {
-        "device": [out["iterations"], out["refine_passes"]]}
-    dev = counts.get("device")
-    if ref is not None and dev is not None:
-        got["refine_passes"] = dev[1] == ref["refine_passes"]
-        got["iterations"] = (abs(dev[0] - ref["iterations"])
+    if ref is not None:
+        got["refine_passes"] = out["refine_passes"] == ref["refine_passes"]
+        got["iterations"] = (abs(out["iterations"] - ref["iterations"])
                              <= ref["iteration_slack"])
-    host = counts.get("host")
-    if host is not None and ref is not None and "host" in ref:
-        want = ref["host"]
-        got["host_refine_passes"] = host[1] == want["refine_passes"]
-        got["host_iterations"] = (abs(host[0] - want["iterations"])
-                                  <= ref["iteration_slack"])
-    elif host is not None and (dev is not None or ref is not None):
-        base = dev or [ref["iterations"] + ref["iteration_slack"],
-                       ref["refine_passes"]]
-        got["host_refine_passes"] = host[1] == base[1]
-        got["host_iterations"] = host[0] <= base[0] + host[1]
     if out["hbm_bw_GBs"] is not None:
         got["copy_bw_plausible"] = out["hbm_bw_GBs"] <= out["hbm_bw_spec_GBs"]
     return got
@@ -270,8 +223,6 @@ def main(argv=None) -> dict:
     from sparsh_amg_tpu_torch.utils.timing import copy_bandwidth
 
     label, build, params, krylov, ref, metric = _case(args, ap)
-    krylov = dataclasses.replace(krylov, loop_mode=args.loop_mode,
-                                 chunk=args.chunk)
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
 
     t0 = time.perf_counter()
@@ -312,49 +263,20 @@ def main(argv=None) -> dict:
     sync()
     rhs_upload_s = time.perf_counter() - t0
 
-    def timed():
-        """Prime, then the best of two solves and the kernel launches over
-        both."""
-        solver.solve(rhs, tol=1e-2)             # prime, as bench.py does
-        sync()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        # Each timed solve runs on a shallow copy of the primed solver:
-        # the solver carries values from solve to solve (its fp32 floor
-        # and contraction estimates), so without the copy the second
-        # solve could take other counts.  Both are then the first solve
-        # after priming, the solve the reference counts describe.  The
-        # copies share the solver's CUDA graphs.
-        runs, launches = counted(
-            lambda: [copy.copy(solver).solve(rhs) for _ in range(2)])
-        stats = meminfo.device_memory_stats(dev)
-        return runs, launches, (stats.get("peak_bytes_in_use"),
-                                stats.get("peak_bytes_reserved"))
-
-    runs, launches, solve_peak = timed()
+    solver.solve(rhs, tol=1e-2)                 # prime, as bench.py does
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    # Each timed solve runs on a shallow copy of the primed solver: the
+    # solver carries a value from solve to solve (its fp32 floor
+    # estimate), so without the copy the second solve could take other
+    # counts.  Both are then the first solve after priming, the solve the
+    # reference counts describe.  The copies share the solver's CUDA
+    # graphs.
+    runs, launches = counted(
+        lambda: [copy.copy(solver).solve(rhs) for _ in range(2)])
+    solve_stats = meminfo.device_memory_stats(dev)
     res = min(runs, key=lambda r: r.solve_time)
-    mode = solver.krylov.loop_mode
-    counts = {mode: [res.iterations, res.refine_passes]}
-    reads = {mode: res.host_reads}
-    ab = None
-    if args.loop_mode == "auto":
-        # bench.py's in-run A/B: the other placement on the same solver,
-        # warmed and primed alike; the faster one is reported
-        ab = {mode: res.solve_time}
-        first = solver.krylov
-        alt = "device" if mode == "host" else "host"
-        solver.krylov = dataclasses.replace(first, loop_mode=alt)
-        solver.warm()
-        alt_out = timed()
-        alt_res = min(alt_out[0], key=lambda r: r.solve_time)
-        ab[alt] = alt_res.solve_time
-        counts[alt] = [alt_res.iterations, alt_res.refine_passes]
-        reads[alt] = alt_res.host_reads
-        if alt_res.solve_time < res.solve_time:
-            runs, launches, solve_peak = alt_out
-            res, mode = alt_res, alt
-        else:
-            solver.krylov = first
     capture_s, instantiate_s = solver.graph_seconds()
     relres_host = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
 
@@ -409,23 +331,17 @@ def main(argv=None) -> dict:
         "device_bytes": solver.device_bytes(),
         "device_bytes_by_level": accounting.footprint_table(
             solver.device, solver.A64, solver.A32),
-        "setup_peak_bytes": setup_peak, "solve_peak_bytes": solve_peak[0],
-        "solve_peak_reserved_bytes": solve_peak[1],
+        "setup_peak_bytes": setup_peak,
+        "solve_peak_bytes": solve_stats.get("peak_bytes_in_use"),
+        "solve_peak_reserved_bytes": solve_stats.get("peak_bytes_reserved"),
         "bytes_in_use": stats.get("bytes_in_use"),
         "peak_bytes_in_use": stats.get("peak_bytes_in_use"),
         "bytes_limit": stats.get("bytes_limit"),
-        "launches": launches,
-        "loop_mode": mode, "chunk": args.chunk, "loop_mode_counts": counts,
-        "masked_steps": res.masked_steps, "host_reads": res.host_reads,
-        "loop_mode_host_reads": reads,
+        "launches": launches, "host_reads": res.host_reads,
         "capture_s": capture_s, "instantiate_s": instantiate_s,
         "pass_graph_s": solver.pass_graph_seconds(),
         "reference": ref,
     }
-    if ab is not None:
-        from sparsh_amg_tpu_torch.utils.timing import measure_dispatch_rtt
-        out["loop_mode_ab_s"] = ab
-        out["dispatch_rtt_ms"] = measure_dispatch_rtt(dev) * 1e3
     if args.config is not None:
         out["config"] = args.config
         out["device_ops"] = [type(l.A).__name__

@@ -23,22 +23,20 @@ Phases (any failure raises, and the script exits non-zero):
      line, at the copy rate measured at the end of the run) and the time
      of one PyTorch call computing the same function
      (library_ms: a cuSPARSE CSR SpMV, which the port never calls); and
-     the loop guard of the device loop mode (csrc/graph_loop.cu) against
+     the loop guard of the Krylov loop (csrc/graph_loop.cu) against
      its plain version on every case of the loop condition;
   4. the flagship solve, poisson3d(192) (7,077,888 unknowns), through
-     AMGSolver in the device loop mode (each refinement pass one launch
-     of a CUDA graph with a WHILE node, one host read per pass, no masked
-     step), with kernel launch counts from that solve, the residual
-     recomputed on the host in fp64; then (4b) the same solve from the
-     pass graphs against its passes launched eagerly (the loop in
-     Python, the guard kernel before every step, as chunk 1 reads: counts
-     equal, relres within 1e-12 relative, whether x has the same bits
-     printed), the host loop mode at chunk 12 (the device mode's passes,
-     at most its iterations plus one per pass), the launches counted over
-     one pass graph launch against the start's, k steps' and finish's
-     captured launches and k + 1 guards, and over one replay of the step
-     graph and of the host mode's main chunk against the kernels the
-     profiler sees, by wrapper, with the node kinds of the captured step;
+     AMGSolver (each refinement pass one launch of a CUDA graph with a
+     WHILE node, one host read per pass), with kernel launch counts from
+     that solve, the residual recomputed on the host in fp64; then (4b)
+     the same solve from the pass graphs against its passes launched
+     eagerly (the loop in Python, the guard kernel before every step:
+     counts equal, relres within 1e-12 relative, whether x has the same
+     bits printed), the launches counted over one pass graph launch
+     against the start's, k steps' and finish's captured launches and
+     k + 1 guards, and over one replay of the step graph against the
+     kernels the profiler sees, by wrapper, with the node kinds of the
+     captured step;
      and a small solve on the card held against the same solve on the
      CPU;
   5. the systems path (smoothed aggregation, rigid-body modes, block
@@ -65,22 +63,19 @@ Phases (any failure raises, and the script exits non-zero):
      1e-2 and solved to 1e-8 with launch counts, held to the JAX
      package's CPU counts (configs.held_counts: one configuration, whose
      BiCGStab count moves with rounding in the JAX package itself, to
-     the port's plain versions' count at full size), aniso-SA(1024)
-     also in the host loop mode at chunk 12 (held as in 4b); and a
+     the port's plain versions' count at full size); and a
      stationary (method "amg") solve and a gs2-BiCGStab solve at small
      sizes on the card held against the CPU;
   7. the bench entry points as a user runs them, in child processes:
      bench_torch.py (the flagship at full size, built and warmed by
-     itself, with its default --loop-mode auto: both placements timed,
-     its line held to ok, the device mode's 12 iterations / 2 passes,
-     the host mode's bound and host relres <= 1e-8, its own launch
-     counts over its timed solves) and
+     itself, its line held to ok, 12 iterations / 2 passes and host
+     relres <= 1e-8, its own launch counts over its timed solves) and
      kernel_bench_torch.py (every level operator, transfer and the
      V-cycle against the measured copy rate; it must exit 0);
   8. the distributed solver (parallel/), ranks as child processes of one
      torch.distributed group: bench_torch.py --dist 1 on NCCL (the
      flagship at full size, held as the serial line, its loop captured:
-     the device mode's pass graphs built); the dry run of
+     its pass graphs built); the dry run of
      graft_entry_torch.py on 4 ranks sharing the card through gloo
      (poisson3d(64), the global setup and then the process-local blocked
      pipeline, each 12 +-1 iterations); the process-local solve of
@@ -97,11 +92,10 @@ Phases (any failure raises, and the script exits non-zero):
      block of poisson3d(304) over four ranks (the four-card cell's fine
      level, 7,023,616 rows, halo 92,416); and (8f, with two
      cards or more) the process-local solve on two NCCL ranks, one card
-     each, in the device and the host loop mode, its loop captured with
-     the halos and all-reduces inside the graphs: counts 12 / 2 (+-1),
-     relres <= 1e-8, one host read per pass in the device mode (its pass
-     graphs built), the eager solve's reads in the host mode, no masked
-     step, x with the same bits as the same solve run eagerly on each
+     each, its loop captured with the halos and all-reduces inside the
+     graphs: counts 12 / 2 (+-1), relres <= 1e-8, one host read per pass
+     (its pass graphs built), x with the same bits as the same solve run
+     eagerly on each
      rank, no event node in the captured step.  With one card 8f prints
      that it did not run.  The ranks' launch counts over their solves
      join the totals.
@@ -109,8 +103,8 @@ The plain versions sum every stored slot, row lengths ignored, so a wrong
 row length in a packer shows as a disagreement.
 Every solve resets the launch counts just before it and reads them just
 after; a replayed graph adds the launches its capture recorded, a pass
-graph its step's once per iteration it ran.  Every solve in the device
-loop mode (phases 4-6 and the bench lines) runs its passes from WHILE
+graph its step's once per iteration it ran.  Every solve on the card
+(phases 4-6 and the bench lines) runs its passes from WHILE
 graphs: graph capture is never skipped on the card, and a capture or a
 pass graph that fails to build fails the run.  The line before the last is one JSON object with the kernels'
 errors, times and launch counts; the last line is
@@ -669,12 +663,6 @@ def calls_per_operator(fn, levels):
     return calls
 
 
-HOST_CHUNK = 12             # the host-mode phases' chunk (bench.py's)
-# phase 6's configurations solved in the host mode too (a W-cycle with
-# BiCGStab)
-HOST_CONFIGS = ("aniso2d_1024_eps1e-3_rot45_aggW_bicgstab",)
-
-
 def wrapper_of(kernel_name):
     """The wrapper of one of the package's kernels, by the kernel's name in
     a profiler trace (dia_tile's second template argument is the tail,
@@ -693,46 +681,13 @@ def wrapper_of(kernel_name):
     return None
 
 
-def host_mode_check(tag, solver, rhs, A, b):
-    """Two shallow copies of a device-mode solver solve rhs from its
-    estimates: as it is, and in the host loop mode (chunk HOST_CHUNK, its
-    graphs captured by warm()).  The host mode must converge to 1e-8 with
-    the device mode's passes and at most its iterations plus one per
-    pass."""
-    dev_res = copy.copy(solver).solve(rhs)
-    host = copy.copy(solver)
-    host.krylov = dataclasses.replace(solver.krylov, loop_mode="host",
-                                      chunk=HOST_CHUNK)
-    g0 = host.graph_seconds()
-    t0 = time.perf_counter()
-    host.warm()
-    warm_s = time.perf_counter() - t0
-    g1 = host.graph_seconds()
-    res = host.solve(rhs)
-    relres = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
-    print(json.dumps({
-        "host_mode": tag, "chunk": HOST_CHUNK, "iterations": res.iterations,
-        "refine_passes": res.refine_passes, "history": res.history,
-        "device_mode": [dev_res.iterations, dev_res.refine_passes],
-        "relres_host_fp64": relres, "solve_s": res.solve_time,
-        "device_mode_solve_s": dev_res.solve_time, "warm_s": warm_s,
-        "capture_s": g1[0] - g0[0], "instantiate_s": g1[1] - g0[1]}),
-        flush=True)
-    assert res.converged and relres <= 1e-8, (tag, res, relres)
-    assert res.refine_passes == dev_res.refine_passes, (tag, res, dev_res)
-    assert res.iterations <= dev_res.iterations + res.refine_passes, \
-        (tag, res, dev_res)
-
-
-def device_mode_check(tag, solver, res, launches):
-    """A device-mode solve ran each pass as one pass graph launch: the
-    solver's pass graphs are built, one host read per pass, no masked
-    step, and the guard launched k + 1 times per pass."""
+def pass_graph_check(tag, solver, res, launches):
+    """A solve on the card ran each pass as one pass graph launch: the
+    solver's pass graphs are built, one host read per pass, and the guard
+    launched k + 1 times per pass."""
     loop = solver._loop()
-    assert solver.krylov.loop_mode == "device", (tag, solver.krylov)
     assert loop.passes and all(p.exec is not None
                                for p in loop.passes.values()), tag
-    assert res.masked_steps == 0, (tag, res.masked_steps)
     assert res.host_reads == res.refine_passes, (tag, res.host_reads, res)
     assert launches["loop_guard"] == res.iterations + res.refine_passes, \
         (tag, launches["loop_guard"], res)
@@ -742,48 +697,44 @@ def device_mode_check(tag, solver, res, launches):
     assert launches["dia_finish64"] == want, (tag, launches, res)
 
 
-def loop_phase(solver, rhs, A, b):
-    """Phase 4b on the flagship: the device mode from WHILE-node pass
-    graphs against the same passes launched eagerly (the guard kernel
-    before every step, one read per step: chunk 1's reads; counts equal,
-    relres within 1e-12 relative; whether x has the same bits is
-    printed), the host mode at chunk HOST_CHUNK, and the launches that
-    counted() reports over one pass graph launch and over one replay of
-    the step graph and of the host mode's main chunk, against the
-    bookkeeping and the kernels the profiler sees."""
+def loop_phase(solver, rhs):
+    """Phase 4b on the flagship: the solve from WHILE-node pass graphs
+    against the same passes launched eagerly (the guard kernel before
+    every step, one read per step; counts equal, relres within 1e-12
+    relative; whether x has the same bits is printed), and the launches
+    that counted() reports over one pass graph launch and over one
+    replay of the step graph, against the bookkeeping and the kernels
+    the profiler sees."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from sparsh_amg_tpu_torch.ops import counted
     # both copies start from the solver's estimates: the same solve
     cap, eager = copy.copy(solver), uncaptured(solver)
-    eager.krylov = dataclasses.replace(solver.krylov, chunk=1)
     r_cap, l_cap = counted(lambda: cap.solve(rhs))
     r_eager = eager.solve(rhs)
     same_bits = bool(np.array_equal(r_cap.x, r_eager.x))
     print(json.dumps({
         "captured_vs_eager": "poisson3d", "captured": [
             r_cap.iterations, r_cap.refine_passes, r_cap.relres,
-            r_cap.solve_time, r_cap.masked_steps, r_cap.host_reads],
-        "eager_chunk1": [r_eager.iterations, r_eager.refine_passes,
+            r_cap.solve_time, r_cap.host_reads],
+        "eager": [r_eager.iterations, r_eager.refine_passes,
                          r_eager.relres, r_eager.solve_time,
                          r_eager.host_reads],
         "x_same_bits": same_bits,
         "graph_seconds": solver.graph_seconds(),
         "pass_graph_seconds": solver.pass_graph_seconds()}), flush=True)
     if not same_bits:
-        print("captured device mode and eager chunk 1 gave x with other "
-              "bits", flush=True)
+        print("captured and eager passes gave x with other bits",
+              flush=True)
     assert (r_cap.iterations, r_cap.refine_passes) == \
         (r_eager.iterations, r_eager.refine_passes), (r_cap, r_eager)
     assert abs(r_cap.relres - r_eager.relres) <= 1e-12 * r_eager.relres, \
         (r_cap.relres, r_eager.relres)
     assert r_cap.converged
-    device_mode_check("poisson3d", cap, r_cap, l_cap)
+    pass_graph_check("poisson3d", cap, r_cap, l_cap)
     # the eager passes read the guard after every step
     assert r_eager.host_reads == r_eager.iterations + 2 * \
         r_eager.refine_passes, r_eager
-
-    host_mode_check("poisson3d", solver, rhs, A, b)
 
     def profiled(fn):
         torch.cuda.synchronize()
@@ -798,7 +749,7 @@ def loop_phase(solver, rhs, A, b):
         return out, {k: v for k, v in counts.items() if v}, seen
 
     # launch accounting under replay: one pass graph launch, then one
-    # replay of its step graph and of the host mode's main chunk
+    # replay of its step graph
     loop = solver._loop()
     loop.b64.copy_(rhs.b)
     loop.set_limits(1e-4, solver.krylov.maxiter)
@@ -811,25 +762,18 @@ def loop_phase(solver, rhs, A, b):
             want[w.__name__] = want.get(w.__name__, 0) + n * times
     want["loop_guard"] = k + 1
     _, step_counts, step_seen = profiled(loop.step.run)
-    main = loop.chunks[HOST_CHUNK]
-    _, chunk_counts, chunk_seen = profiled(main.run)
     print(json.dumps({
         "pass_graph_launches_counted": counts, "pass_graph_iterations": k,
         "pass_graph_kernels_profiled": seen,
         "step_launches_counted": step_counts,
         "step_kernels_profiled": step_seen,
-        "step_graph_nodes": loop.step.node_kinds(),
-        "chunk_launches_counted": chunk_counts,
-        "chunk_kernels_profiled": chunk_seen,
-        "chunk": HOST_CHUNK}), flush=True)
+        "step_graph_nodes": loop.step.node_kinds()}), flush=True)
     # the profiler reports a WHILE body's kernels once per launch
     assert k > 1 and counts == want, (counts, want)
     assert set(seen) == set(counts) and all(
         1 <= seen[w] <= counts[w] for w in counts), (counts, seen)
     assert step_counts and step_counts == step_seen, (step_counts,
                                                       step_seen)
-    assert chunk_counts and chunk_counts == chunk_seen, (chunk_counts,
-                                                         chunk_seen)
 
 
 def systems_phase(dim, rng, results, dev):
@@ -914,7 +858,7 @@ def systems_phase(dim, rng, results, dev):
     assert abs(res.iterations - want["iterations"]) <= slack, (res, want)
     assert res.refine_passes == want["refine_passes"], (res, want)
     assert launches["block_ell_spmv"] > 0 and launches["ell_spmv"] > 0
-    device_mode_check(name, solver, res, launches)
+    pass_graph_check(name, solver, res, launches)
     if dim == 2:
         assert launches["dia_cheb_step"] > 0 and launches["dia_spmv"] > 0
     return launches
@@ -1089,9 +1033,7 @@ def config_phase(name, rng, results, dev):
         assert launches[w] > 0, f"{name}: {w} not launched during the solve"
     for op in CONFIG_CALLS.get(name, ()):
         assert per_op[op] > 0, f"{name}: no SpMV on {op} during the solve"
-    device_mode_check(name, solver, res, launches)
-    if name in HOST_CONFIGS:
-        host_mode_check(CONFIG_TAGS[name], solver, rhs, A, b)
+    pass_graph_check(name, solver, res, launches)
     return launches
 
 
@@ -1140,12 +1082,10 @@ def child_json(script, *args, timeout=600):
 
 
 def bench_loop_check(tag, out):
-    """A bench line's device mode ran from pass graphs (built, so
-    pass_graph_s > 0), one read per pass and no masked step."""
-    dev = out["loop_mode_counts"]["device"]
+    """A bench line's solves ran from pass graphs (built, so pass_graph_s
+    > 0), one read per pass."""
     assert out["pass_graph_s"] > 0, (tag, out["pass_graph_s"])
-    assert out["loop_mode_host_reads"]["device"] == dev[1], (tag, out)
-    assert out["masked_steps"] == 0, (tag, out["masked_steps"])
+    assert out["host_reads"] == out["refine_passes"], (tag, out)
     assert out["launches"]["loop_guard"] > 0, (tag, out["launches"])
 
 
@@ -1158,10 +1098,7 @@ def bench_phase(gpu_name):
     print(json.dumps(out), flush=True)
     ref = flagship.REFERENCE_192
     assert rc == 0 and out["ok"], out.get("checks")
-    # --loop-mode auto: both placements ran; the device mode's counts are
-    # the reference's, the host mode's within its bound (out["checks"])
-    assert set(out["loop_mode_ab_s"]) == {"host", "device"}, out
-    assert out["loop_mode_counts"]["device"] == \
+    assert [out["iterations"], out["refine_passes"]] == \
         [ref["iterations"], ref["refine_passes"]], out
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
@@ -1188,9 +1125,9 @@ NCCL_RANKS = 2              # phase 8f: NCCL ranks, one card each
 
 def nccl_phase():
     """Phase 8f: the process-local solve on NCCL_RANKS NCCL ranks, one
-    card each, in both loop modes from captured graphs, held against the
-    same solve run eagerly.  Returns the ranks' launch counts (none with
-    fewer cards than ranks)."""
+    card each, from captured graphs, held against the same solve run
+    eagerly.  Returns the ranks' launch counts (none with fewer cards
+    than ranks)."""
     import torch
     from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
     cards = torch.cuda.device_count()
@@ -1198,45 +1135,36 @@ def nccl_phase():
         print(f"phase 8f did not run: several NCCL ranks need one card "
               f"each, and this machine has {cards}", flush=True)
         return []
-    paths = []
-    for mode in ("device", "host"):
-        t0 = time.perf_counter()
-        res = launch_processes(NCCL_RANKS, "poisson3d", DIST_M,
-                               setup="blocked", device="cuda",
-                               backend="nccl", loop_mode=mode,
-                               compare_eager=True, timeout=600)
-        for r in res:
-            print(json.dumps(r), flush=True)
-            assert r["backend"] == "nccl" and r["capture"], r
-            assert r["converged"] and r["true_relres"] <= 1e-8, r
-            assert abs(r["iterations"] - 12) <= 1 and r["passes"] == 2, r
-            assert r["same_bits"], r
-            assert (r["eager"]["iterations"], r["eager"]["passes"]) == \
-                (r["iterations"], r["passes"]), r
-            assert r["masked_steps"] == 0, r
-            kinds = r["step_node_kinds"]
-            assert kinds["kernel"] > 0 and not {"wait_event",
-                                                "event_record"} & set(kinds), r
-            assert r["launches"]["dia_spmv"] > 0 and \
-                r["launches"]["ell_spmv"] > 0, r
-            if mode == "device":
-                assert r["host_reads"] == r["passes"], r
-                assert r["pass_graph_s"] > 0, r
-                assert len(r["pass_ms"]) == r["passes"], r
-                assert r["launches"]["loop_guard"] > 0, r
-            else:
-                assert r["host_reads"] == r["eager"]["host_reads"], r
-            paths.append(r["launches"])
-        assert len({(r["iterations"], r["passes"]) for r in res}) == 1, res
-        print(f"phase_s 8f {time.perf_counter() - t0:.1f} launch_processes "
-              f"ranks={NCCL_RANKS} backend=nccl {mode} poisson3d({DIST_M}) "
-              f"iters={res[0]['iterations']} passes={res[0]['passes']} "
-              f"relres={res[0]['true_relres']:.4e} same_bits=True "
-              f"solve_s={max(r['solve_s'] for r in res):.4f} "
-              f"eager_solve_s={max(r['eager']['solve_s'] for r in res):.4f}"
-              + (f" pass_share={min(r['pass_share'] for r in res):.3f}"
-                 if mode == "device" else ""), flush=True)
-    return paths
+    t0 = time.perf_counter()
+    res = launch_processes(NCCL_RANKS, "poisson3d", DIST_M, setup="blocked",
+                           device="cuda", backend="nccl",
+                           compare_eager=True, timeout=600)
+    for r in res:
+        print(json.dumps(r), flush=True)
+        assert r["backend"] == "nccl" and r["capture"], r
+        assert r["converged"] and r["true_relres"] <= 1e-8, r
+        assert abs(r["iterations"] - 12) <= 1 and r["passes"] == 2, r
+        assert r["same_bits"], r
+        assert (r["eager"]["iterations"], r["eager"]["passes"]) == \
+            (r["iterations"], r["passes"]), r
+        kinds = r["step_node_kinds"]
+        assert kinds["kernel"] > 0 and not {"wait_event",
+                                            "event_record"} & set(kinds), r
+        assert r["launches"]["dia_spmv"] > 0 and \
+            r["launches"]["ell_spmv"] > 0, r
+        assert r["host_reads"] == r["passes"], r
+        assert r["pass_graph_s"] > 0, r
+        assert len(r["pass_ms"]) == r["passes"], r
+        assert r["launches"]["loop_guard"] > 0, r
+    assert len({(r["iterations"], r["passes"]) for r in res}) == 1, res
+    print(f"phase_s 8f {time.perf_counter() - t0:.1f} launch_processes "
+          f"ranks={NCCL_RANKS} backend=nccl poisson3d({DIST_M}) "
+          f"iters={res[0]['iterations']} passes={res[0]['passes']} "
+          f"relres={res[0]['true_relres']:.4e} same_bits=True "
+          f"solve_s={max(r['solve_s'] for r in res):.4f} "
+          f"eager_solve_s={max(r['eager']['solve_s'] for r in res):.4f} "
+          f"pass_share={min(r['pass_share'] for r in res):.3f}", flush=True)
+    return [r["launches"] for r in res]
 
 
 def dist_shard_cases(rng, results, dev):
@@ -1471,7 +1399,7 @@ def dist_phase(gpu_name, rng, results, dev):
     ref = flagship.REFERENCE_192
     assert rc == 0 and out["ok"], out.get("checks")
     assert (out["dist_ranks"], out["dist_backend"]) == (1, "nccl"), out
-    assert out["loop_mode_counts"]["device"] == \
+    assert [out["iterations"], out["refine_passes"]] == \
         [ref["iterations"], ref["refine_passes"]], out
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
@@ -1485,7 +1413,6 @@ def dist_phase(gpu_name, rng, results, dev):
     print(f"phase_s 8a {time.perf_counter() - t0:.1f} bench --dist 1 nccl "
           f"iters={out['iterations']} passes={out['refine_passes']} "
           f"relres={out['relres_host_fp64']:.4e} solve_s={out['solve_s']} "
-          f"loop_mode_ab_s={out['loop_mode_ab_s']} "
           f"pass_graph_s={out['pass_graph_s']}", flush=True)
 
     # (b) the dry run: 4 ranks sharing the card through gloo
@@ -1679,9 +1606,9 @@ def main(nside=192, dev="cuda"):
     for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
                  "dia_cheb_step", "ell_spmv"):
         assert launches[name] > 0, f"{name} not launched during the solve"
-    device_mode_check("poisson3d", solver, res, launches)
+    pass_graph_check("poisson3d", solver, res, launches)
     t0 = time.perf_counter()
-    loop_phase(solver, rhs, A, b)
+    loop_phase(solver, rhs)
     print(f"phase_s 4b {time.perf_counter() - t0:.1f}", flush=True)
 
     # a small solve on the card against the same solve on the CPU (the

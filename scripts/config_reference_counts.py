@@ -4,8 +4,9 @@ the two elasticity ones (systems.py: elasticity3d, elasticity2d) on the
 CPU: the JAX package's solver, or with ``--port`` the PyTorch port (its
 plain versions on the CPU, its CUDA kernels with ``--device cuda``), at
 full size, both in the loop placement of ``--loop-mode`` (default
-device, the references' placement) and ``--chunk`` (default the
-configuration's).  Each run primes the solver at tol 1e-2 and then
+device, the references' placement and the port's only one) and
+``--chunk`` (default the configuration's; the JAX package's host mode
+alone reads it).  Each run primes the solver at tol 1e-2 and then
 solves to the configured 1e-8, as ``scripts/run_configs_tpu.py:167-168``
 does, and prints one JSON line: iterations, refinement passes, the
 per-pass history and relres recomputed in fp64.

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile_solve.py [--root DIR] [--configs e3d e2d p3d]
     python3 scripts/torch_profile_solve.py --configs aniso2d_2048_eps1e-3_rot45_aggW_bicgstab
-    python3 scripts/torch_profile_solve.py --configs p3d --modes device host:12 eager
+    python3 scripts/torch_profile_solve.py --configs p3d --modes device eager
     python3 scripts/torch_profile_solve.py --configs p3d --while-cost
 
 For each configuration (e3d: elasticity3d(40), e2d: elasticity2d(512), p3d:
@@ -16,19 +16,17 @@ device event's start to the last one's end, the device busy time (the
 union of the events' intervals), the number of events and the device time
 by kernel name, and counts the kernel wrappers' launches in that solve.
 
---modes places the Krylov loop (``KrylovParams.loop_mode`` and ``chunk``)
-for each run in turn: ``device`` (each refinement pass one launch of a
-graph with a WHILE node; ``device:K`` is the same, K unused), ``host:K``
-(K iterations per chunk, each chunk one CUDA graph replay) and ``eager``
-(the device mode's passes launched from Python, uncaptured, one read per
-step).  Each mode runs on a
+--modes runs the Krylov loop for each run in turn as ``device`` (each
+refinement pass one launch of a graph with a WHILE node) or ``eager``
+(the same passes launched from Python, uncaptured, one read per step).
+Each mode runs on a
 shallow copy of the freshly set-up solver with graphs and estimates of
 its own (the hierarchy is shared; the copy and its graphs are freed
 before the next mode, so the peaks are the mode's alone), is warmed
 (``warm()``: its graphs' capture and instantiation seconds and the pass
 graphs' build seconds are reported), primed and timed alike, with the
 allocator's peaks (in use and reserved, graph pools included) over its
-timed solves, ``masked_steps`` and ``host_reads``.  The profiler reports
+timed solves, and ``host_reads``.  The profiler reports
 the kernels of a WHILE node's body once per launch, not once per
 iteration, so in the device mode its busy time misses the later
 iterations: there ``pass_device_ms`` (CUDA events around each pass graph
@@ -39,7 +37,8 @@ One JSON line per configuration and mode.
 --while-cost measures the WHILE node's own cost per iteration: with the
 budget binding (tol 1e-30), the device time of one pass graph with K1 and
 K2 iterations against the same pass replayed as its pieces (start, one
-chunk graph of K steps, finish); the difference of the two slopes over K
+graph of the step captured K times, finish); the difference of the two
+slopes over K
 is what the loop adds per iteration (the guard kernel node and the
 conditional node).  One JSON line per configuration.
 
@@ -104,20 +103,9 @@ def _wrappers():
     return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, loop_guard)
 
 
-def _placement(spec, kr):
-    """(capture, KrylovParams) of a --modes entry."""
-    import dataclasses
-    mode, _, k = spec.partition(":")
-    if mode not in ("device", "host", "eager"):
-        raise SystemExit(f"unknown mode {spec!r}: device, host:K or eager")
-    chunk = int(k) if k else kr.chunk
-    return mode != "eager", dataclasses.replace(
-        kr, loop_mode="device" if mode == "eager" else mode, chunk=chunk)
-
-
 def profile_all(cfg, modes, dev):
-    """One record per mode of `modes` ("device:K", "host:K", "eager:K")
-    on one solver of configuration `cfg`."""
+    """One record per mode of `modes` ("device", "eager") on one solver
+    of configuration `cfg`."""
     import torch
     from sparsh_amg_tpu_torch import AMGSolver
     A, ns, p, kr, prime = _problem(cfg)
@@ -127,7 +115,7 @@ def profile_all(cfg, modes, dev):
     for spec in modes:
         solver = copy.copy(fresh)
         solver._reset_loop_state()
-        solver.capture, solver.krylov = _placement(spec, kr)
+        solver.capture = spec == "device"
         graphs0 = solver.graph_seconds()
         t0 = time.perf_counter()
         solver.warm()
@@ -160,7 +148,7 @@ def profile_one(solver, A, b, rhs, prime):
     for _ in range(SOLVES):
         res = solver.solve(rhs)
         runs.append((res.solve_time, res.iterations, res.refine_passes,
-                     res.masked_steps, getattr(res, "host_reads", None)))
+                     res.host_reads))
     relres = float(np.linalg.norm(b - A @ res.x) / np.linalg.norm(b))
     torch.cuda.synchronize()
     peaks = (torch.cuda.max_memory_allocated(),
@@ -179,8 +167,7 @@ def profile_one(solver, A, b, rhs, prime):
     dev_events = [e for e in prof.events()
                   if getattr(e.device_type, "name", "") == "CUDA"]
     out = {"iterations": [r[1] for r in runs], "history": res.history,
-           "passes": [r[2] for r in runs], "masked_steps": [r[3] for r in runs],
-           "host_reads": [r[4] for r in runs],
+           "passes": [r[2] for r in runs], "host_reads": [r[3] for r in runs],
            "relres_host_fp64": relres,
            "solve_peak_bytes": peaks[0], "solve_peak_reserved_bytes": peaks[1],
            "solve_s_first": runs[0][0],
@@ -214,13 +201,10 @@ def profile_one(solver, A, b, rhs, prime):
 def _pass_device_ms(solver, rhs):
     """([device ms of each pass graph], wall s) of one more solve, from
     CUDA events around each pass graph launch; None when the solve runs
-    no pass graph (host mode, eager, an older checkout)."""
+    no pass graph (eager)."""
     import torch
-    try:
-        from sparsh_amg_tpu_torch.solve.graphs import PassGraph
-    except ImportError:
-        return None
-    if solver.krylov.loop_mode != "device" or not solver.capture:
+    from sparsh_amg_tpu_torch.solve.graphs import PassGraph
+    if not solver.capture:
         return None
     events = []
     launch = PassGraph.launch
@@ -256,7 +240,7 @@ def interleaved(cfg, modes, rounds, dev):
     solvers = {}
     for spec in modes:
         solver = copy.copy(fresh)
-        solver.capture, solver.krylov = _placement(spec, kr)
+        solver.capture = spec == "device"
         solver.warm()
         solver.solve(rhs, tol=prime or 1e-2)
         solvers[spec] = solver
@@ -279,19 +263,25 @@ WHILE_REPS = 10
 def while_cost(cfg, dev):
     """The WHILE node's cost per iteration on configuration `cfg` (see
     --while-cost)."""
-    import dataclasses
     import torch
     from sparsh_amg_tpu_torch import AMGSolver
+    from sparsh_amg_tpu_torch.solve.graphs import ChunkGraph
     A, ns, p, kr, _ = _problem(cfg)
-    solver = AMGSolver(A, p, dataclasses.replace(
-        kr, loop_mode="device", chunk=max(WHILE_KS)), nullspace=ns,
-        device=dev)
+    solver = AMGSolver(A, p, kr, nullspace=ns, device=dev)
     solver.warm()
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     loop = solver._loop()
     loop.b64.copy_(solver.prepare_rhs(b).b)
     pg = loop.pass_graph(True)
-    pieces = {k: [loop.cast, loop.init, loop.chunk(k), loop.finish]
+
+    def steps(k):
+        """One graph of the loop's step captured k times."""
+        def fn(bufs):
+            for _ in range(k):
+                loop.step.fn(bufs)
+            return ()
+        return ChunkGraph(fn, (), True, loop.pool)
+    pieces = {k: [loop.cast, loop.init, steps(k), loop.finish]
               for k in WHILE_KS}
     for gs in pieces.values():
         for g in gs:
@@ -333,9 +323,9 @@ def main():
     ap.add_argument("--configs", nargs="+", default=["e3d", "e2d", "p3d"],
                     help="e3d, e2d, p3d, or names from configs.NAMES")
     ap.add_argument("--modes", nargs="+", default=["device"],
-                    help="loop placements to run in turn: device, host:K "
-                         "or eager (default device, the configurations' "
-                         "own)")
+                    choices=["device", "eager"],
+                    help="run the loop's passes as pass graphs (device) "
+                         "or launched from Python (eager), in turn")
     ap.add_argument("--interleave", type=int, default=0, metavar="R",
                     help="R rounds of one solve per mode in turn, in one "
                          "process, instead of profiling")

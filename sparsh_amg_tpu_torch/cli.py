@@ -8,13 +8,9 @@ results.
 
 The solve runs on the GPU (``--device cuda``, the default) and raises when
 there is none; ``--device cpu`` runs the kernels' plain PyTorch versions.
-``--loop-mode`` (host, device or auto) and ``--chunk`` place the Krylov
-loop as in the JAX CLI (``KrylovParams``): the device mode runs each
-refinement pass as one device-resident loop (one CUDA graph launch with a
-WHILE node on the card, read once per pass), so its counts are exact; the
-host mode runs chunks of ``--chunk`` iterations, each one CUDA graph
-replay, with the host reading convergence once per chunk.  On the CPU the
-same pieces run eagerly.
+Each refinement pass is one device-resident loop (one CUDA graph launch
+with a WHILE node on the card, read once per pass; eager on the CPU): the
+JAX CLI's ``--loop-mode device``, with its exact counts.
 
 ``--dist N`` row-shards the solve over N ranks, one process each
 (``parallel/``): with N > 1 this process starts N rank processes of the
@@ -89,13 +85,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dense-size", type=int, default=2048)
     p.add_argument("--band-dtype", default="float32",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--loop-mode", default="host",
-                   choices=["host", "device", "auto"],
-                   help="Krylov loop placement (see KrylovParams; auto "
-                        "probes the per-dispatch RTT)")
-    p.add_argument("--chunk", type=int, default=4,
-                   help="Krylov iterations per chunk of the host loop "
-                        "mode (one CUDA graph replay on the card)")
     p.add_argument("--reorder", default="auto",
                    choices=["auto", "rcm", "none"])
     p.add_argument("--dist", type=int, default=0, metavar="N",
@@ -177,8 +166,7 @@ def run(argv=None) -> dict:
                        p_smooth_filter=not args.no_p_smooth_filter,
                        rap_drop_tol=args.rap_drop_tol)
     krylov = KrylovParams(method=args.krylov, tol=args.tol,
-                          maxiter=args.maxiter, refine=not args.no_refine,
-                          loop_mode=args.loop_mode, chunk=args.chunk)
+                          maxiter=args.maxiter, refine=not args.no_refine)
 
     if args.problem.endswith((".mtx", ".mm")):
         from .utils.io import read_matrix, read_rhs

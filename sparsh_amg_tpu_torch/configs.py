@@ -145,9 +145,9 @@ def params(name: str, **overrides) -> AMGParams:
 
 
 def krylov(name: str, tol: float = 1e-8) -> KrylovParams:
-    """The configuration's method and budget in the device loop mode, the
-    placement REFERENCE's counts were taken with."""
-    return KrylovParams(tol=tol, loop_mode="device", **_TABLE[name][3])
+    """The configuration's method and budget (REFERENCE's counts were taken
+    in the JAX package's device loop mode, the port's one placement)."""
+    return KrylovParams(tol=tol, **_TABLE[name][3])
 
 
 def held_counts(name: str) -> dict:

@@ -22,6 +22,6 @@ def params(dense_size: int = 2048) -> AMGParams:
 
 
 def krylov(tol: float = 1e-8) -> KrylovParams:
-    """PCG in the device loop mode, the placement BENCH_r05.json's count
-    was taken with (exact counts)."""
-    return KrylovParams(method="cg", tol=tol, loop_mode="device")
+    """PCG; BENCH_r05.json's count was taken in the JAX package's device
+    loop mode, the port's one placement (exact counts)."""
+    return KrylovParams(method="cg", tol=tol)

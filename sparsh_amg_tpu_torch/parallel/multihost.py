@@ -84,17 +84,14 @@ def init_process_group(backend: str | None = None, device=None,
         # NCCL's support for mixing captured and uncaptured collectives
         # puts an event wait node at the head of every captured collective
         # and event record nodes after it; a CUDA graph's WHILE body holds
-        # neither, so the device mode's pass graph would not instantiate
-        # (the host mode's graphs would; the placement is chosen after the
-        # communicator exists, so the whole process goes without).
-        # Without it, a captured and an uncaptured collective on one
-        # communicator must not be in flight together, in either order.
-        # An uncaptured collective before a launch: the launch's stream
-        # waits for it.  A launch before an uncaptured collective: the
-        # stream does not help; the host reads every launch of the loop
-        # back before it goes on, and DistAMGSolver's own uncaptured
-        # collectives raise where it has not (``_uncaptured``).  Read when
-        # the communicator is created, after this.
+        # neither, so the pass graph would not instantiate.  Without it, a
+        # captured and an uncaptured collective on one communicator must
+        # not be in flight together, in either order.  An uncaptured
+        # collective before a launch: the launch's stream waits for it.
+        # A launch before an uncaptured collective: the stream does not
+        # help; the host reads every pass graph launch back before it goes
+        # on (``PassGraph.run``).  Read when the communicator is created,
+        # after this.
         os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     addr = os.environ.get("MASTER_ADDR", "localhost")
     port = os.environ.get("MASTER_PORT") or str(free_port())
@@ -341,28 +338,27 @@ def launch_processes(num_processes: int, problem: str = "poisson3d",
                      m: int = 24, setup: str = "blocked", device="cuda",
                      backend: str | None = None, krylov_method: str = "cg",
                      row_align: int | None = None, timeout: float = 900.0,
-                     threads: int | None = None, loop_mode: str = "host",
+                     threads: int | None = None,
                      compare_eager: bool = False) -> list:
     """Run the distributed solve of ``_worker_main`` on `num_processes`
     ranks and return their result dicts (the JAX launcher's keys, plus
     the rank's backend, device, times, kernel launches, collectives
     (``dist.COLLECTIVES``) and what its loop did: whether it captured,
-    host reads, masked steps, the captured step's node kinds, the pass
-    graphs' device ms and their share of the solve's wall).
+    host reads, the captured step's node kinds, the pass graphs' device
+    ms and their share of the solve's wall).
 
     ``setup="blocked"`` is the process-local path: each rank assembles
     only its row block, coarsens through the blocked setup and returns
     its own rows.  ``setup="global"`` builds the global matrix and
-    hierarchy in every rank.  The Krylov loop is placed by `loop_mode`
-    (``KrylovParams``'s chunk); the solver is warmed
-    (``AMGSolver.warm``) before the timed solve.  With `compare_eager`
+    hierarchy in every rank.  The solver is warmed (``AMGSolver.warm``)
+    before the timed solve.  With `compare_eager`
     each rank also solves on a copy that runs the loop eagerly, from the
     same state, and reports its counts, collectives, time and whether
     its x has the same bits (``"eager"``, ``"same_bits"``)."""
     backend = backend or default_backend(device)
     cmd = ["-m", "sparsh_amg_tpu_torch.parallel.multihost", "--worker",
            "--m", str(m), "--setup", setup, "--problem", problem,
-           "--krylov", krylov_method, "--loop-mode", loop_mode]
+           "--krylov", krylov_method]
     if row_align is not None:
         cmd += ["--row-align", str(row_align)]
     if compare_eager:
@@ -427,8 +423,6 @@ def _worker_main(argv=None) -> None:
                     default="poisson3d")
     ap.add_argument("--row-align", type=int, default=None)
     ap.add_argument("--krylov", default="cg")
-    ap.add_argument("--loop-mode", default="host",
-                    choices=("host", "device"))
     ap.add_argument("--compare-eager", action="store_true")
     args = ap.parse_args(argv)
 
@@ -443,7 +437,7 @@ def _worker_main(argv=None) -> None:
         args.problem, args.m, args.row_align)
     krylov = KrylovParams(method=args.krylov, tol=1e-8,
                           maxiter=60 if args.problem == "poisson3d"
-                          else 200, loop_mode=args.loop_mode)
+                          else 200)
     b = np.random.default_rng(0).standard_normal(n_glob)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
@@ -533,9 +527,7 @@ def _worker_main(argv=None) -> None:
         "pass_share": sum(res.pass_ms) / 1e3 / res.solve_time,
         "levels": [type(l.A).__name__ for l in solver.dist.levels],
         "launches": launches, "collectives": collectives,
-        "loop_mode": solver.krylov.loop_mode,
         "capture": solver._loop().capture, "host_reads": res.host_reads,
-        "masked_steps": res.masked_steps,
         "step_node_kinds": (solver._loop().step.node_kinds()
                             if solver._loop().capture else None),
         "maxrss_mb": resource.getrusage(

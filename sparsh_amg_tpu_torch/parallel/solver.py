@@ -4,8 +4,7 @@
 One process per rank of a ``torch.distributed`` process group; each rank
 holds its row block of every distributed level on its own device.  Every
 rank runs the serial solver's loop (``AMGSolver``: each refinement pass
-one device-resident loop in the device mode, Krylov chunks with one read
-each in the host mode, fp64 iterative refinement) on its block: the
+one device-resident loop, fp64 iterative refinement) on its block: the
 serial cycle, smoothers and Krylov steps apply unchanged, since the
 distributed operators have the serial ones' ``spmv``, the coarse level
 its ``coarse_solve``, and the dots are ``pdot`` (each rank's fp64
@@ -29,7 +28,6 @@ Three constructors, as in the JAX package:
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 import weakref
 from functools import partial
@@ -101,13 +99,11 @@ class DistAMGSolver(AMGSolver):
     solver of the process is in ``DistAMGSolver.live``, whose graphs
     ``multihost.destroy_process_group`` (also run at exit) releases
     (``release_graphs``) before it destroys the group; destroy the group
-    through it, not through ``torch.distributed`` directly.  The device
-    mode's pass graphs need ``NCCL_GRAPH_MIXING_SUPPORT=0`` in the
-    environment when the communicator is created
-    (``multihost.init_process_group`` sets it), and with it no uncaptured
-    collective may follow a graph launch that the host has not read
-    back: the solver's own (the rhs norm, the gathered x) raise if one
-    would (``_uncaptured``).
+    through it, not through ``torch.distributed`` directly.  The pass
+    graphs need ``NCCL_GRAPH_MIXING_SUPPORT=0`` in the environment when
+    the communicator is created (``multihost.init_process_group`` sets
+    it), and with it no uncaptured collective may follow a graph launch
+    that the host has not read back (``PassGraph.run`` reads each back).
     """
 
     live = weakref.WeakSet()       # every solver of this process
@@ -145,16 +141,8 @@ class DistAMGSolver(AMGSolver):
         self.ranks = ranks
         self.capture = loop_capture(backend, ranks.size)
         self.params = params or AMGParams()
-        krylov = krylov or KrylovParams()
-        self.krylov = check_krylov(krylov, self.torch_device)
-        if krylov.loop_mode == "auto" and ranks.size > 1:
-            # every rank takes one placement: host if any rank's probe
-            # says host (the ranks step and reduce in lockstep)
-            host = ranks.all_reduce(torch.tensor(
-                float(self.krylov.loop_mode == "host"),
-                device=self.torch_device))
-            self.krylov = dataclasses.replace(
-                self.krylov, loop_mode="host" if host.item() else "device")
+        self.krylov = krylov or KrylovParams()
+        check_krylov(self.krylov)
         torch.backends.cuda.matmul.allow_tf32 = False
 
     def _finish(self, dh: DistHierarchy, A64, local_rows: bool,
@@ -270,20 +258,7 @@ class DistAMGSolver(AMGSolver):
         bpad = np.zeros(self.part.n_loc)
         bpad[: r1 - r0] = b
         t = torch.from_numpy(bpad).to(self.torch_device)
-        self._uncaptured()
         return DeviceRhs(t, float(np.sqrt(self._dot(t, t).item())))
-
-    def _uncaptured(self) -> None:
-        """Called before each uncaptured collective of the solver.  With
-        NCCL's graph mixing support off, a collective issued while a
-        graph launch that captured collectives on the same communicator
-        may still run is undefined (the stream does not order them): the
-        host reads every launch of the loop back before it goes on
-        (``_Loop.read``), and this raises where it has not."""
-        if any(lp.unread for lp in self._loops.values()):
-            raise RuntimeError("an uncaptured collective after a graph "
-                               "launch of the Krylov loop that the host "
-                               "has not read back")
 
     def _fetch(self, x: torch.Tensor):
         """Process-local: this rank's rows.  Otherwise the full solution,
@@ -294,7 +269,6 @@ class DistAMGSolver(AMGSolver):
             return lambda: x[: r1 - r0].cpu().numpy().astype(np.float64)
         if self.ranks.size == 1:
             return super()._fetch(x)
-        self._uncaptured()
         full = self.ranks.all_gather(x)[: self.n].cpu().numpy()
         return self._unperm(full.astype(np.float64))
 
@@ -308,5 +282,4 @@ class DistAMGSolver(AMGSolver):
         pad = torch.zeros(self.part.n_loc, dtype=torch.float64,
                           device=self.torch_device)
         pad[: r1 - r0] = torch.from_numpy(x[: r1 - r0]).to(pad.device)
-        self._uncaptured()
         return self.ranks.all_gather(pad)[: self.n].cpu().numpy()

@@ -223,17 +223,15 @@ class KrylovParams:
                                        # cycle iteration, no Krylov)
     tol: float = 1e-8                  # relative residual target
     maxiter: int = 500
-    # Iteration-loop placement (SURVEY.md §3.1): "device" runs each
-    # refinement pass as one device-resident loop (on the card one CUDA
-    # graph launch with a WHILE node, one host read per pass), so the
-    # counts are exact (the JAX lax.while_loop's); "host" runs chunks of
-    # `chunk` iterations, each one CUDA graph replay, with one host read
-    # of convergence per chunk, stepping every chunk to its end (up to
-    # chunk-1 iterations past a pass's end, as the JAX host mode).
-    # "auto" probes one launch and scalar read at solver build and picks
-    # "device" when it is < 1 ms (utils.timing.resolve_loop_mode).
-    loop_mode: str = "host"            # host | device | auto
-    chunk: int = 4                     # iterations per chunk
+    # Iteration-loop placement (SURVEY.md §3.1): the port has one, the
+    # device loop: each refinement pass is one device-resident loop (on
+    # the card one CUDA graph launch with a WHILE node, one host read per
+    # pass), with the exact counts of the JAX lax.while_loop.  The solver
+    # refuses any other value.
+    loop_mode: str = "device"
+    # Read by nothing: the benchmark's configuration files and the JAX
+    # package's KrylovParams (its host loop mode's chunk) carry it.
+    chunk: int = 4
     # Mixed-precision iterative refinement: the device cycle runs in fp32
     # (TPU has no fast native f64); to reach tol below fp32 roundoff the
     # outer loop recomputes residuals in double-float (df64) arithmetic and

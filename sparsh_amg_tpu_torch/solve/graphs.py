@@ -1,7 +1,6 @@
 """The Krylov loop as CUDA graphs: the counterpart of the JAX package's
-jitted loop programs (``solve/solver.py``: ``_kr_chunk`` and the fused
-``refine_start``/``refine_finish``, and ``_inner_solve_dev``'s
-``lax.while_loop``).
+jitted device-mode pass (``solve/solver.py``: ``_inner_solve_dev``'s
+``lax.while_loop``, with the fused ``refine_start``/``refine_finish``).
 
 A ``ChunkGraph`` runs ``fn`` on a tuple of static buffers and copies its
 outputs back into them.  On the card it captures that once as one
@@ -12,7 +11,7 @@ before capture, replays chain, and no tensor made inside a graph
 outlives it: every graph of a solver can share one memory pool whatever
 order they replay in.
 
-A ``PassGraph`` is one refinement pass of the device loop mode: start
+A ``PassGraph`` is one refinement pass: start
 graphs, then the step graph while the loop condition holds, then finish
 graphs.  On the card it is one graph launch: ``csrc/graph_loop.cu``
 assembles the captured graphs as child graphs around a conditional WHILE
@@ -202,7 +201,12 @@ class PassGraph:
     the ``tails`` graphs; ``run()`` returns ``prog`` as the host reads it
     after the pass (prog[1] is k, the iterations the pass ran) and the
     number of host reads the pass made; ``device_ms`` is the device time
-    of the last launch (captured passes).
+    of the last launch (captured passes).  ``run()`` reads prog back
+    before it returns, so every launch of the loop has finished when the
+    caller goes on: on NCCL ranks, whose communicator is created with
+    ``NCCL_GRAPH_MIXING_SUPPORT=0`` (``multihost.init_process_group``),
+    an uncaptured collective (the rhs norm, the gathered x) may follow
+    only a graph launch that the host has read back.
 
     With ``capture`` (every graph captured) the pass is one launch of a
     graph built by ``csrc/graph_loop.cu`` (``build_s`` times its assembly,

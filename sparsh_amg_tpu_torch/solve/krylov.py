@@ -1,28 +1,23 @@
 """Krylov iterations (the port of ``sparsh_amg_tpu/solve/krylov.py``): the
-init and step functions of preconditioned CG, BiCGStab and the stationary
-AMG iteration, with the JAX package's state tuples, and their chunks.
-Every scalar, the iteration count k included, is a 0-d tensor on the
-device, so a chunk runs with no host sync and captures as a CUDA graph.
+init and the in-place step of preconditioned CG, BiCGStab and the
+stationary AMG iteration, with the JAX package's state tuples.  Every
+scalar, the iteration count k included, is a 0-d tensor on the device, so
+a step runs with no host sync and captures as a CUDA graph.
 
 * PCG: (x, r, z, p, r.z, r.r, k);
 * BiCGStab: (x, r, v, p, rho, alpha, omega, r.r, k, breakdown);
 * stationary: (x, r, r.r, k).
 
-A chunk (``pcg_chunk``, ``bicgstab_chunk``, ``stationary_chunk``) is k
-calls of the step with no data-dependent control flow: the host loop
-mode, which may step up to k-1 times past convergence.  The device loop
-mode steps one at a time on fixed buffers, with the steps' in-place
-forms (``pcg_step_``, ``bicgstab_step_``, ``stationary_step_``: the same
-bits, no copy of the state per step).
+A step (``pcg_step_``, ``bicgstab_step_``, ``stationary_step_``) advances
+the state's buffers in place: the JAX package's step, its operations in
+the same order, each vector written where it lies.
 
 ``loop_continue`` is the condition of the JAX package's device-mode
 ``lax.while_loop`` (``sparsh_amg_tpu/solve/krylov.py:73-77``, ``:164-167``,
 ``:227-230``): ||r||^2 finite and above the pass's target, k below its
-budget, and (BiCGStab) no breakdown.  The device loop mode steps while it
+budget, and (BiCGStab) no breakdown.  Each refinement pass steps while it
 holds: on the card inside one CUDA graph (``solve/graphs.py``, the guard
-kernel of ``csrc/graph_loop.cu``), on the CPU in a Python loop.  With a
-``guard`` a chunk's steps are predicated on it (``masked``): a step past
-convergence, the budget or a breakdown changes no bit of the state.
+kernel of ``csrc/graph_loop.cu``), on the CPU in a Python loop.
 """
 from __future__ import annotations
 
@@ -36,77 +31,24 @@ def _count(b: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=b.device)
 
 
-def pcg_init(matvec, precond, b, _dot, x0=None):
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0
-        r = b - matvec(x0)
-    z = precond(r)
-    p = z
-    return (x, r, z, p, _dot(r, z), _dot(r, r), _count(b))
+def pcg_init(matvec, precond, b, _dot):
+    # x before the cycle's temporaries: the allocation order sets where a
+    # captured graph's blocks land in its pool, and so the pool's peak
+    x = torch.zeros_like(b)
+    z = precond(b)
+    return (x, b, z, z, _dot(b, z), _dot(b, b), _count(b))
 
 
-def pcg_step(matvec, precond, _dot, state):
-    x, r, z, p, rz_, rr_, k = state
-    q = matvec(p)
-    pq = _dot(p, q)
-    alpha = rz_ / torch.where(pq != 0, pq, 1.0)
-    x = x + alpha * p
-    r = r - alpha * q
-    z = precond(r)
-    rz_new = _dot(r, z)
-    beta = rz_new / torch.where(rz_ != 0, rz_, 1.0)
-    p = z + beta * p
-    return (x, r, z, p, rz_new, _dot(r, r), k + 1)
-
-
-def bicgstab_init(matvec, b, _dot, x0=None):
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0
-        r = b - matvec(x0)
+def bicgstab_init(matvec, b, _dot):
+    x = torch.zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
-    v = torch.zeros_like(b)
-    p = torch.zeros_like(b)
-    return (x, r, v, p, one, one, one, _dot(r, r), _count(b),
+    return (x, b, torch.zeros_like(b), torch.zeros_like(b), one, one, one,
+            _dot(b, b), _count(b),
             torch.zeros((), dtype=torch.bool, device=b.device))
 
 
-def bicgstab_step(matvec, precond, _dot, rhat, state):
-    """One preconditioned BiCGStab iteration (two preconditioner
-    applications, two matvecs).  On breakdown (rho == 0 or omega == 0)
-    x and r keep their values, as in the JAX package."""
-    x, r, v, p, rho, alpha, omega, rr, k, brk = state
-    rho_new = _dot(rhat, r)
-    breakdown = (rho_new == 0) | (omega == 0)
-    beta = (rho_new / torch.where(rho != 0, rho, 1.0)) * \
-           (alpha / torch.where(omega != 0, omega, 1.0))
-    p = r + beta * (p - omega * v)
-    phat = precond(p)
-    v = matvec(phat)
-    rhat_v = _dot(rhat, v)
-    alpha = rho_new / torch.where(rhat_v != 0, rhat_v, 1.0)
-    s = r - alpha * v
-    shat = precond(s)
-    t = matvec(shat)
-    tt = _dot(t, t)
-    omega = _dot(t, s) / torch.where(tt != 0, tt, 1.0)
-    x_new = x + alpha * phat + omega * shat
-    r_new = s - omega * t
-    frozen = brk | breakdown
-    x = torch.where(frozen, x, x_new)
-    r = torch.where(frozen, r, r_new)
-    return (x, r, v, p, rho_new, alpha, omega, _dot(r, r), k + 1, frozen)
-
-
 def pcg_step_(matvec, precond, _dot, state) -> None:
-    """``pcg_step`` advancing the state's buffers in place: the same
-    operations in the same order (the same bits), each vector written
-    where it lies instead of copied back after the step.  z, which the
+    """One PCG iteration on the state's buffers, in place.  z, which the
     next step recomputes from r, keeps its old value."""
     x, r, _, p, rz_, rr_, k = state
     q = matvec(p)
@@ -124,8 +66,10 @@ def pcg_step_(matvec, precond, _dot, state) -> None:
 
 
 def bicgstab_step_(matvec, precond, _dot, rhat, state) -> None:
-    """``bicgstab_step`` advancing the state's buffers in place (see
-    ``pcg_step_``)."""
+    """One preconditioned BiCGStab iteration (two preconditioner
+    applications, two matvecs) on the state's buffers, in place.  On
+    breakdown (rho == 0 or omega == 0) x and r keep their values, as in
+    the JAX package."""
     x, r, v, p, rho, alpha, omega, rr, k, brk = state
     rho_new = _dot(rhat, r)
     breakdown = (rho_new == 0) | (omega == 0)
@@ -154,28 +98,14 @@ def bicgstab_step_(matvec, precond, _dot, rhat, state) -> None:
     brk.copy_(frozen)
 
 
-def stationary_init(matvec, precond, b, _dot, x0=None):
+def stationary_init(matvec, precond, b, _dot):
     """The standalone multigrid iteration x += M^-1 r (method "amg")."""
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0
-        r = b - matvec(x0)
-    return (x, r, _dot(r, r), _count(b))
-
-
-def stationary_step(matvec, precond, _dot, state):
-    x, r, rr, k = state
-    e = precond(r)
-    x = x + e
-    r = r - matvec(e)       # one matvec per iteration (incremental residual)
-    return (x, r, _dot(r, r), k + 1)
+    return (torch.zeros_like(b), b, _dot(b, b), _count(b))
 
 
 def stationary_step_(matvec, precond, _dot, state) -> None:
-    """``stationary_step`` advancing the state's buffers in place (see
-    ``pcg_step_``)."""
+    """One stationary iteration x += M^-1 r on the state's buffers, in
+    place (one matvec: the residual is updated incrementally)."""
     x, r, rr, k = state
     e = precond(r)
     x.add_(e)
@@ -217,65 +147,9 @@ def loop_record(method: str, state) -> torch.Tensor:
 
 
 def step_inplace(matvec, precond, method: str, _dot, rhat=None):
-    """step(state) -> None: one plain step of `method` on the state's
-    buffers (the body of the device loop mode's loop); BiCGStab's shadow
-    residual is `rhat`."""
+    """step(state) -> None: one step of `method` on the state's buffers
+    (the body of the loop); BiCGStab's shadow residual is `rhat`."""
     if method == "bicgstab":
         return lambda st: bicgstab_step_(matvec, precond, _dot, rhat, st)
     step = {"cg": pcg_step_, "amg": stationary_step_}[method]
     return lambda st: step(matvec, precond, _dot, st)
-
-
-def masked(step, method: str, guard):
-    """`step` predicated on the device by ``loop_active``: an active step
-    gives the plain step's bits; an inactive one leaves every state entry
-    bit for bit unchanged and k where it was."""
-
-    def step_masked(state):
-        active = loop_active(method, state, guard)
-        new = step(state)
-        return tuple(torch.where(active, n, o) for n, o in zip(new, state))
-
-    return step_masked
-
-
-def _chunk(step, chunk: int, method: str, guard):
-    if guard is not None:
-        step = masked(step, method, guard)
-
-    def chunk_fn(state):
-        for _ in range(chunk):
-            state = step(state)
-        return state
-
-    return chunk_fn
-
-
-def pcg_chunk(matvec, precond, chunk: int, _dot, guard=None):
-    """(init_fn(b) -> state, chunk_fn(state) -> state): chunk_fn advances
-    `chunk` iterations with no data-dependent control flow (each one
-    predicated when a guard is given, see ``masked``)."""
-    init_fn = lambda b, x0=None: pcg_init(matvec, precond, b, _dot, x0)
-    return init_fn, _chunk(lambda st: pcg_step(matvec, precond, _dot, st),
-                           chunk, "cg", guard)
-
-
-def bicgstab_chunk(matvec, precond, chunk: int, _dot, guard=None):
-    """BiCGStab's (init_fn(b), chunk_fn(rhat, state)), as pcg_chunk."""
-    init_fn = lambda b, x0=None: bicgstab_init(matvec, b, _dot, x0)
-
-    def chunk_fn(rhat, state):
-        return _chunk(lambda st: bicgstab_step(matvec, precond, _dot, rhat,
-                                               st),
-                      chunk, "bicgstab", guard)(state)
-
-    return init_fn, chunk_fn
-
-
-def stationary_chunk(matvec, precond, chunk: int, _dot, guard=None):
-    """The stationary iteration's (init_fn(b), chunk_fn(state)), as
-    pcg_chunk (the JAX package unrolls it inside its solver)."""
-    init_fn = lambda b, x0=None: stationary_init(matvec, precond, b, _dot, x0)
-    return init_fn, _chunk(
-        lambda st: stationary_step(matvec, precond, _dot, st), chunk, "amg",
-        guard)

@@ -7,27 +7,14 @@ mixed-precision iterative refinement: each pass computes the residual in
 fp64 on the device, solves for a correction in fp32, and adds it to the
 fp64 solution.
 
-The Krylov loop is placed as in the JAX package (``KrylovParams.loop_mode``
-and ``chunk``); on the card every piece of it is a CUDA graph
-(``solve/graphs.py``):
-
-* ``"device"``: each refinement pass is one device-resident loop, the JAX
-  package's ``lax.while_loop`` (``_inner_solve_dev``): the start (the
-  cast of b or the previous pass's residual, the Krylov init), the plain
-  step while ``krylov.loop_continue`` holds, and the finish (x += d in
-  fp64, the true residual and its norm), one graph launch with a WHILE
-  node and one host read per pass.  On the CPU the same pass runs
-  eagerly with the loop in Python.  The counts are exact.
-* ``"host"``: chunks of iterations; the host reads ||r||^2, the count and
-  BiCGStab's breakdown flag once per chunk and picks the next chunk's size
-  from the contraction seen so far (``_pick_chunk``).  The pass's start is
-  replayed back to back with its first chunk, sized with no read
-  (``_first_chunk``), and its finish right after the last, as the JAX
-  package's fused ``refine_start``/``kr_start`` and ``refine_finish``.  A
-  pass may run up to chunk-1 iterations past convergence, as the JAX host
-  mode does.
-* ``"auto"``: ``"device"`` when one launch and scalar read cost under
-  1 ms (``utils.timing.resolve_loop_mode``), resolved at construction.
+Each refinement pass is one device-resident loop, the JAX package's
+device loop mode (``_inner_solve_dev``'s ``lax.while_loop``): the start
+(the cast of b or the previous pass's residual, the Krylov init), the
+plain step while ``krylov.loop_continue`` holds, and the finish (x += d
+in fp64, the true residual and its norm).  On the card that is one
+launch of a CUDA graph with a WHILE node (``solve/graphs.py``) and one
+host read per pass; on the CPU the same pass runs eagerly with the loop
+in Python.  The counts are exact.
 
 Each pass is capped at the iterations left of the solve's budget (the JAX
 device mode gives every pass the whole ``maxiter``).
@@ -50,43 +37,49 @@ from ..params import AMGParams, KrylovParams
 from ..setup.hierarchy import Hierarchy, amg_setup
 from ..setup.reorder import maybe_reorder
 from ..utils import trace
-from ..utils.logging import get_logger, iteration_log
 from .cycles import make_cycle
 from .device import DeviceHierarchy, _torch_dtype, to_device
 from .graphs import ChunkGraph, PassGraph
-from .krylov import (READS, bicgstab_chunk, loop_record, pcg_chunk,
-                     stationary_chunk, step_inplace)
+from .krylov import (READS, bicgstab_init, loop_record, pcg_init,
+                     stationary_init, step_inplace)
 
-_log = get_logger(__name__)
-
-_CHUNKS = {"cg": pcg_chunk, "bicgstab": bicgstab_chunk,
-           "amg": stationary_chunk}
-LOOP_MODES = ("host", "device", "auto")
-
-# tail-chunk size ladder: the scheduler lands within +1 iteration of the
-# estimated need using at most two extra chunks (need <= 1 -> 1, 2 -> 2,
-# 3..5 -> 4 (+1 worst case), > 5 -> 4 then re-estimate).  A fixed small
-# set bounds the number of captured chunk graphs.
-_TAILS = (1, 2, 4)
+# the Krylov init of each method as init(matvec, precond, b, dot)
+_INITS = {"cg": pcg_init,
+          "bicgstab": lambda mv, pc, b, dot: bicgstab_init(mv, b, dot),
+          "amg": stationary_init}
 
 
-def _pick_chunk(need: int, main: int) -> int:
-    """Chunk size for an estimated ``need`` remaining iterations: the
-    smallest ladder size covering it, a full main chunk when at least a
-    main chunk is known to be needed."""
-    if need >= main:
-        return main
-    for k in _TAILS:
-        if need <= k:
-            return k
-    return min(main, _TAILS[-1])
+def _parts(method, init, step, A64, dot, b64, x64, b, limits, state, guard,
+           prog) -> dict:
+    """{name: (fn, bufs)} of the loop's four graphs.  The functions close
+    over the buffers and the operators alone: a graph holds its function,
+    and one that held the loop would keep the loop and its graphs (and
+    their device memory) alive until the cyclic collector ran."""
+    i_rr = READS[method][0]
 
+    def cast(bufs):
+        return b64, torch.zeros_like(x64)
 
-def chunk_sizes(main: int) -> tuple:
-    """Every chunk size the scheduler can pick for a main chunk of `main`
-    (the probe included)."""
-    return tuple(sorted({_pick_chunk(n, main) for n in range(1, main + 1)}
-                        | {min(_TAILS[-1], main)}))
+    def start(bufs):
+        st = init(b)
+        rr0 = st[i_rr].double()
+        return (*st, limits[0] * rr0,
+                torch.cat((loop_record(method, st), rr0.reshape(1))))
+
+    def advance(bufs):
+        # the tracer's stamps, when it is on while the step is captured
+        with trace.stamping(b.device):
+            step(state)
+        return ()
+
+    def finish(bufs):
+        x, r, rr = bufs
+        return finish64(A64, x, state[0], b64, r, rr, dot)
+
+    return {"cast": (cast, (b, x64)),
+            "init": (start, (*state, guard[0], prog[:4])),
+            "step": (advance, ()),
+            "finish": (finish, (x64, b, prog[4:]))}
 
 
 class _Loop:
@@ -102,30 +95,21 @@ class _Loop:
     * ``cast`` (pass 0's start): b = fp32(b64), x64 = 0;
     * ``init``: the Krylov state from b, the target, prog[:4];
     * ``step``: one plain step on the state's buffers, in place (the
-      body of the device mode's loop);
+      body of the loop);
     * ``finish``: x64 += x, r = b64 - A64 x64 in fp64, prog[4] = ||r||^2
       and b = fp32(r), the next pass's right-hand side (so a later pass
       starts with ``init`` alone, as the JAX package's ``refine_start``
       starts from the residual of the previous pass's x); on a DIA
       operator on the card one kernel writing the buffers in place
       (``ops.fp64.finish64``);
-    * the host mode's chunks of k plain steps, each writing prog[:4]
-      (``chunk(k)``, captured at first use);
-    * the device mode's two pass graphs (``pass_graph``): cast and init,
-      or init alone, then the step while ``krylov.loop_continue`` holds,
-      then finish."""
+    * the two pass graphs (``pass_graph``): cast and init, or init alone,
+      then the step while ``krylov.loop_continue`` holds, then finish."""
 
     def __init__(self, solver, method: str):
         dev, n = solver.torch_device, solver.n_pad
         self.method = method
         self.capture = solver.capture and dev.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.capture else None
-        # the operators, not the solver: a loop that referenced its solver
-        # would hold it (and its device memory) in a cycle until gc ran
-        self._mv = partial(spmv, solver._krylov_op)
-        self._pc = partial(solver._cycle, solver.device.levels)
-        self._dot = solver._dot
-        self._A64 = solver.A64
         self.b64 = torch.zeros(n, dtype=torch.float64, device=dev)
         self.x64 = torch.zeros(n, dtype=torch.float64, device=dev)
         self.b = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -135,18 +119,17 @@ class _Loop:
         self.guard = (torch.zeros((), dtype=torch.float64, device=dev),
                       self.limits[1])
         self.prog = torch.zeros(5, dtype=torch.float64, device=dev)
-        self._init_state, _ = _CHUNKS[method](self._mv, self._pc, 1,
-                                              self._dot)
-        self.state = tuple(t.clone() for t in self._init_state(self.b))
-        self._step = step_inplace(self._mv, self._pc, method, self._dot,
-                                  self.b)
-        parts = {
-            "cast": (self._cast_fn, (self.b, self.x64)),
-            "init": (self._init_fn, (*self.state, self.guard[0],
-                                     self.prog[:4])),
-            "step": (self._step_fn, ()),
-            "finish": (self._finish_fn, (self.x64, self.b, self.prog[4:])),
-        }
+        # the operators, not the solver: a loop that referenced its solver
+        # would hold it (and its device memory) while a graph held the loop
+        mv = partial(spmv, solver._krylov_op)
+        pc = partial(solver._cycle, solver.device.levels)
+        dot = solver._dot
+        init = lambda b: _INITS[method](mv, pc, b, dot)
+        self.state = tuple(t.clone() for t in init(self.b))
+        parts = _parts(method, init,
+                       step_inplace(mv, pc, method, dot, self.b),
+                       solver.A64, dot, self.b64, self.x64, self.b,
+                       self.limits, self.state, self.guard, self.prog)
         if self.capture:
             # one eager run of each part first: the kernel build, each
             # first launch and the BLAS handles happen outside any capture
@@ -155,59 +138,8 @@ class _Loop:
                 ChunkGraph(fn, bufs, False).run()
         for name, (fn, bufs) in parts.items():
             setattr(self, name, ChunkGraph(fn, bufs, self.capture, self.pool))
-        self.chunks = {}
         self.passes = {}
-        # a launch of the loop's graphs that the host has not yet read
-        # back (``replay``, ``read``): on NCCL ranks no uncaptured
-        # collective may follow it (``multihost.init_process_group``)
-        self.unread = False
         self.pass_ms = []          # the current solve's pass graphs' ms
-
-    def replay(self, g: ChunkGraph) -> None:
-        """Launch one of the loop's graphs (host mode); the host reads
-        prog (``read``) before it issues anything but more launches."""
-        with trace.span("solve.launch"):
-            g.run()
-        self.unread = True
-
-    def read(self, t: torch.Tensor):
-        """Read `t` (of prog) on the host, after every launch before it."""
-        with trace.span("solve.read"):
-            out = t.tolist()
-        self.unread = False
-        return out
-
-    def _cast_fn(self, bufs):
-        return self.b64, torch.zeros_like(self.x64)
-
-    def _init_fn(self, bufs):
-        st = self._init_state(self.b)
-        rr0 = st[READS[self.method][0]].double()
-        return (*st, self.limits[0] * rr0, self._progress(st, rr0))
-
-    def _progress(self, state, rr0):
-        return torch.cat((loop_record(self.method, state), rr0.reshape(1)))
-
-    def _step_fn(self, bufs):
-        # the tracer's stamps, when it is on while the step is captured
-        with trace.stamping(self.b.device):
-            self._step(self.state)
-        return ()
-
-    def _steps_fn(self, k: int):
-        _, chunk = _CHUNKS[self.method](self._mv, self._pc, k, self._dot)
-        if self.method == "bicgstab":
-            chunk = partial(chunk, self.b)
-
-        def fn(bufs):
-            st = chunk(bufs[:-1])
-            return (*st, self._progress(st, bufs[-1][3]))
-        return fn
-
-    def _finish_fn(self, bufs):
-        x64, b, rr = bufs
-        return finish64(self._A64, x64, self.state[0], self.b64, b, rr,
-                        self._dot)
 
     def set_limits(self, tol: float, budget: int) -> None:
         """tol^2 and the budget of the next pass: one copy to the device."""
@@ -215,20 +147,8 @@ class _Loop:
         with trace.device_op("solve.limits", self.limits.device):
             self.limits.copy_(self._limits_host, non_blocking=True)
 
-    def chunk(self, k: int) -> ChunkGraph:
-        """The host mode's chunk of k steps, captured and instantiated on
-        first use (warm() takes every size the scheduler can pick)."""
-        g = self.chunks.get(k)
-        if g is None:
-            g = self.chunks[k] = ChunkGraph(
-                self._steps_fn(k), (*self.state, self.prog[:4]),
-                self.capture, self.pool)
-            g.instantiate()
-        return g
-
     def pass_graph(self, first: bool) -> PassGraph:
-        """The device mode's pass (pass 0's when `first`), built on first
-        use."""
+        """The pass (pass 0's when `first`), built on first use."""
         g = self.passes.get(first)
         if g is None:
             heads = [self.cast, self.init] if first else [self.init]
@@ -238,8 +158,7 @@ class _Loop:
         return g
 
     def all_graphs(self) -> list:
-        return [self.cast, self.init, self.step, self.finish,
-                *self.chunks.values()]
+        return [self.cast, self.init, self.step, self.finish]
 
     def release(self) -> None:
         """Destroy every graph of the loop (the pass graphs first: they
@@ -259,15 +178,12 @@ class SolveResult:
     setup_time: float
     solve_time: float
     history: list              # per-pass (inner_iters, relres after pass)
-    masked_steps: int = 0      # steps run past the end of a pass that did
-                               # not count (0 in both loop modes)
     host_reads: int = 0        # reads of the device by the host: one per
-                               # pass graph (device mode; an eager pass
-                               # reads the guard after every step too),
-                               # one per chunk and per pass (host mode)
+                               # pass graph (an eager pass reads the guard
+                               # after every step too)
     pass_ms: list = dataclasses.field(default_factory=list)
                                # device ms of each pass graph launch (CUDA
-                               # events; captured device mode only)
+                               # events; captured passes only)
 
     @property
     def x(self) -> np.ndarray:
@@ -291,20 +207,15 @@ class DeviceRhs:
     bnorm: float
 
 
-def check_krylov(krylov: KrylovParams, device) -> KrylovParams:
-    """Validate the method and the loop placement; resolve "auto"."""
+def check_krylov(krylov: KrylovParams) -> None:
+    """Validate the method and the loop placement: the port places the
+    Krylov loop one way, on the device (``loop_mode="device"``)."""
     if krylov.method not in READS:
         raise ValueError(f"unknown Krylov method {krylov.method!r}")
-    if krylov.loop_mode not in LOOP_MODES:
-        raise ValueError(f"unknown loop_mode {krylov.loop_mode!r} "
-                         f"(one of {LOOP_MODES})")
-    if krylov.chunk < 1:
-        raise ValueError(f"chunk must be at least 1, got {krylov.chunk}")
-    if krylov.loop_mode == "auto":
-        from ..utils.timing import resolve_loop_mode
-        krylov = dataclasses.replace(
-            krylov, loop_mode=resolve_loop_mode("auto", device))
-    return krylov
+    if krylov.loop_mode != "device":
+        raise ValueError(f"loop_mode {krylov.loop_mode!r}: the port has one "
+                         f"placement of the Krylov loop, the device loop "
+                         f"(loop_mode=\"device\")")
 
 
 class AMGSolver:
@@ -314,8 +225,8 @@ class AMGSolver:
     >>> solver = AMGSolver(A, params, krylov, device="cuda")
     >>> res = solver.solve(b)           # b float64, returns SolveResult
 
-    On the card the loop's graphs are captured once and replayed (the
-    device mode's passes as one launch each); the CPU runs the same
+    On the card the loop's graphs are captured once and replayed (each
+    pass as one launch); the CPU runs the same
     pieces eagerly.  Shallow copies share the graphs and their buffers; a
     copy with ``capture = False`` runs them eagerly on the card too (its
     own buffers).
@@ -330,8 +241,8 @@ class AMGSolver:
         self.torch_device = torch.device(device)
         self.params = params or (hierarchy.params if hierarchy else None) \
             or AMGParams()
-        self.krylov = check_krylov(krylov or KrylovParams(),
-                                   self.torch_device)
+        self.krylov = krylov or KrylovParams()
+        check_krylov(self.krylov)
         # the dense coarse solve and dense levels must stay fp32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
@@ -391,7 +302,6 @@ class AMGSolver:
 
     def _reset_loop_state(self) -> None:
         self._floor_est = None     # fp32 attainable pass contraction, once seen
-        self._rho2_est = None      # per-iteration ||r||^2 contraction
         self._loops = {}           # (Krylov method, capture) -> _Loop
 
     def _loop(self) -> _Loop:
@@ -408,8 +318,8 @@ class AMGSolver:
                 sum(g.instantiate_s for g in gs))
 
     def pass_graph_seconds(self) -> float:
-        """Seconds spent assembling, instantiating and uploading the device
-        mode's pass graphs so far."""
+        """Seconds spent assembling, instantiating and uploading the pass
+        graphs so far."""
         return sum(g.build_s for lp in self._loops.values()
                    for g in lp.passes.values())
 
@@ -426,102 +336,32 @@ class AMGSolver:
 
     @trace.spanned("warm")
     def warm(self) -> None:
-        """Capture every graph the configured loop mode can replay (the
-        start, step and finish; the host mode's main chunk, the ladder 1,
-        2, 4 and the probe, the set the JAX package's warm() compiles; the
-        device mode's two pass graphs), then two throwaway passes (a
-        first and a later one) on a ones right-hand side at tol 1e-1, so
-        the kernel builds (nvcc, at first launch), every capture and
-        instantiation and the allocator's first growth happen before any
-        timed solve.  Leaves no estimate behind."""
+        """Capture every graph of the loop (the start, step and finish, and
+        the two pass graphs), then two throwaway passes (a first and a
+        later one) on a ones right-hand side at tol 1e-1, so the kernel
+        builds (nvcc, at first launch), every capture and instantiation
+        and the allocator's first growth happen before any timed solve.
+        Leaves no estimate behind."""
         loop = self._loop()
-        if self.krylov.loop_mode == "device":
-            for first in (True, False):
-                loop.pass_graph(first)
-        else:
-            for k in chunk_sizes(self.krylov.chunk):
-                loop.chunk(k)
-        rho2 = self._rho2_est
+        for first in (True, False):
+            loop.pass_graph(first)
         with trace.span("warm.passes"):
             loop.b64.copy_(self.prepare_rhs(np.ones(self.n)).b)
             for first in (True, False):
                 self._pass(loop, first, 1e-1, self.krylov.maxiter)
-        self._rho2_est = rho2
-
-    def _first_chunk(self, itol: float, first_pass: bool) -> int:
-        """A pass's first chunk, chosen with no read of the device: on the
-        first pass a main chunk when the contraction estimate says one is
-        needed, else the probe; on later passes a ladder size capped at
-        the probe."""
-        main = self.krylov.chunk
-        probe = min(_TAILS[-1], main)
-        rho2 = self._rho2_est
-        need = None
-        if rho2 is not None and 0.0 < rho2 < 1.0:
-            need = int(np.ceil(2.0 * np.log(itol) / np.log(rho2)))
-        if first_pass:
-            return main if need is not None and need >= main else probe
-        if need is None:
-            need = max(1, main // 4)
-        return _pick_chunk(max(1, min(need, _TAILS[-1])), main)
-
-    def _note_contraction(self, rr: float, iters: int, rr0: float) -> None:
-        """The cumulative geometric-mean contraction of a pass so far."""
-        if iters > 0 and 0.0 < rr < rr0:
-            self._rho2_est = float((rr / rr0) ** (1.0 / iters))
 
     def _pass(self, loop: _Loop, first: bool, tol: float, maxiter: int):
         """One refinement pass on the loop's buffers: the fp32 iteration
         on b (pass 0: the solve's rhs, else the previous pass's residual)
         from x = 0 until ||r|| <= tol ||b||, maxiter iterations or a
         BiCGStab breakdown, then x64 += x and the true residual.  Returns
-        (iterations, true ||r||^2, steps run, host reads)."""
+        (iterations, true ||r||^2, host reads)."""
         loop.set_limits(tol, maxiter)
-        if self.krylov.loop_mode == "device":
-            # one launch, read back before run() returns
-            pg = loop.pass_graph(first)
-            (rr, iters, _, rr0, rnsq), reads = pg.run()
-            if pg.device_ms is not None:
-                loop.pass_ms.append(pg.device_ms)
-            iters = int(iters)
-            self._note_contraction(rr, iters, rr0)
-            return iters, rnsq, iters, reads
-        main = self.krylov.chunk
-        if first:
-            loop.replay(loop.cast)
-        loop.replay(loop.init)
-        k = self._first_chunk(tol, first)
-        steps = reads = 0
-        t0 = time.perf_counter()
-        while True:
-            loop.replay(loop.chunk(k))
-            steps += k
-            rr, iters, broken, rr0, _ = loop.read(loop.prog)
-            reads += 1
-            iters = int(iters)
-            if rr0 == 0.0:             # a zero right-hand side: no step
-                iters = 0              # counts (the JAX loop runs none)
-                break
-            target = (tol * tol) * rr0
-            self._note_contraction(rr, iters, rr0)
-            if _log.isEnabledFor(10):
-                _log.debug("%s", iteration_log(
-                    iters, float(np.sqrt(max(rr, 0.0) / rr0)),
-                    time.perf_counter() - t0))
-            if (rr <= target or not np.isfinite(rr) or iters >= maxiter
-                    or broken):
-                break
-            # the next chunk lands within +1 of the projected crossing
-            rho2 = self._rho2_est
-            if rho2 is not None and 0.0 < rho2 < 1.0 and target > 0.0:
-                need = int(np.ceil(np.log(target / rr) / np.log(rho2)))
-                k = _pick_chunk(max(need, 1), main)
-            elif iters == 0:
-                k = min(_TAILS[-1], main)    # cold probe
-            else:
-                k = main
-        loop.replay(loop.finish)
-        return iters, loop.read(loop.prog[4]), steps, reads + 1
+        pg = loop.pass_graph(first)
+        (_, iters, _, _, rnsq), reads = pg.run()
+        if pg.device_ms is not None:
+            loop.pass_ms.append(pg.device_ms)
+        return int(iters), rnsq, reads
 
     def _pass_tol(self, tol: float, relres: float) -> float:
         """Inner tolerance for the next refinement pass: aim 10x past the
@@ -588,7 +428,7 @@ class AMGSolver:
                 loop.b64.copy_(b.b)
             loop.pass_ms = []
         history = []
-        total_iters = passes = steps = reads = 0
+        total_iters = passes = reads = 0
         converged = False
         relres = 1.0
         # without refinement: one pass to tol itself
@@ -598,9 +438,7 @@ class AMGSolver:
                 break
             itol = self._pass_tol(tol, relres) if kr.refine else tol
             with trace.span("solve.pass"):
-                iters, rnsq, k, r = self._pass(loop, passes == 0, itol,
-                                               budget)
-            steps += k
+                iters, rnsq, r = self._pass(loop, passes == 0, itol, budget)
             reads += r
             passes += 1
             total_iters += iters
@@ -619,8 +457,8 @@ class AMGSolver:
                 x = loop.x64.clone()
             return SolveResult(self._fetch(x), converged, relres,
                                total_iters, passes, self.setup_time,
-                               time.perf_counter() - t0, history,
-                               steps - total_iters, reads, loop.pass_ms)
+                               time.perf_counter() - t0, history, reads,
+                               loop.pass_ms)
 
 
 def solve(A: sp.csr_matrix, b: np.ndarray, params: AMGParams | None = None,

@@ -13,12 +13,6 @@ refinement, fp32 matrix data.
 solve at tol 1e-2, then a solve to 1e-8 (``run_configs_tpu.py:167-168``).
 The CPU counts are the ones to match; the TPU's (``CONFIGS_r5.json``)
 differ by numerics, not by algorithm, and are context only.
-``"cpu_host"`` is the JAX package's count in the host loop mode at chunk
-12, where it is not within one iteration a pass of the device mode's:
-elasticity2d's passes stall at the fp32 floor, and a chunk runs on to its
-end past it (``scripts/config_reference_counts.py elasticity2d --size
-512 --loop-mode host --chunk 12``: 57 / 4 in the JAX package and in the
-port's plain versions alike, against 36 / 4 in the device mode).
 """
 from __future__ import annotations
 
@@ -39,8 +33,6 @@ REFERENCE = {
     "elasticity2d(512)": {"n": 525_312, "nnz": 8_382_460,
                           "cpu": {"iterations": 36, "refine_passes": 4,
                                   "relres": 1.36e-9},
-                          "cpu_host": {"iterations": 57, "refine_passes": 4,
-                                       "chunk": 12, "relres": 1.29e-9},
                           "tpu": {"iterations": 39, "refine_passes": 4}},
 }
 
@@ -95,7 +87,6 @@ def params(dim: int, dense_size: int = 2048) -> AMGParams:
 
 
 def krylov(tol: float = 1e-8) -> KrylovParams:
-    """PCG in the device loop mode, the placement REFERENCE's counts were
-    taken with."""
-    return KrylovParams(method="cg", tol=tol, maxiter=300,
-                        loop_mode="device")
+    """PCG; REFERENCE's counts were taken in the JAX package's device loop
+    mode, the port's one placement."""
+    return KrylovParams(method="cg", tol=tol, maxiter=300)

@@ -1,8 +1,6 @@
 """Op benchmarking (the port of ``sparsh_amg_tpu/utils/timing.py``): the
 median time of one op, between CUDA events on the card or by ``perf_counter``
-with a synchronize elsewhere, and the dispatch round-trip probe
-(``measure_dispatch_rtt``) behind ``resolve_loop_mode``, which places the
-Krylov loop for ``KrylovParams(loop_mode="auto")``.
+with a synchronize elsewhere.
 
 The device-time harness of ``chip_smoke.py``, ``kernel_bench_torch.py``
 and ``scripts/torch_dia_sweep.py`` lives here too: ``timed_ms`` (launches
@@ -154,41 +152,6 @@ def benchmark_op(fn, *args, warmup: int = 2, iters: int = 10) -> float:
             samples.append(time.perf_counter() - t0)
     samples.sort()
     return samples[len(samples) // 2]
-
-
-_RTT_CACHE: dict = {}
-
-
-def measure_dispatch_rtt(device, reps: int = 5) -> float:
-    """Median seconds of one tiny launch followed by a scalar read on
-    `device`: what the Krylov loop pays per read of its progress.
-    Cached per device for the life of the process."""
-    device = torch.device(device)
-    key = str(device)
-    if key not in _RTT_CACHE:
-        x = torch.zeros(8, device=device)
-        float((x * 1.0000001)[0])              # first launch
-        ts = []
-        for i in range(reps):
-            x = torch.full((8,), float(i + 1), device=device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            float((x * 1.0000001)[0])
-            ts.append(time.perf_counter() - t0)
-        _RTT_CACHE[key] = statistics.median(ts)
-    return _RTT_CACHE[key]
-
-
-def resolve_loop_mode(mode: str, device, threshold_s: float = 1e-3) -> str:
-    """loop_mode "auto" -> "device" when one launch and read on `device`
-    cost under ``threshold_s`` (the passes then run the exact counts for
-    a negligible read per pass), else "host"; any other mode
-    unchanged."""
-    if mode != "auto":
-        return mode
-    return "device" if measure_dispatch_rtt(device) < threshold_s \
-        else "host"
 
 
 def speed_of_light_spmv_nnz_per_s(hbm_bw_bytes: float,

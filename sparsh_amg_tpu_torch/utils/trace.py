@@ -26,7 +26,7 @@ no environment variable switches anything: a caller turns it on with
   anchor, so the two clocks' drift over a long window cancels, and gives
   each anchor's bracket (the two host reads' distance).
 * **Stamps** (device, inside captured graphs): within ``stamping()`` (the
-  device loop mode's step, ``solve/solver.py::_Loop``) each ``stamp()``
+  the Krylov loop's step, ``solve/solver.py::_Loop``) each ``stamp()``
   issues the one-thread kernel ``trace_stamp`` (``csrc/graph_loop.cu``),
   which reads the device's global timer, adds the time since the previous
   stamp to its slot and 1 to the slot's count; a reset stamp only takes
@@ -359,7 +359,7 @@ class _Stamping:
 
 
 def stamping(device: torch.device):
-    """The stamped region (the device loop mode's step): ``step.begin``
+    """The stamped region (the Krylov loop's step): ``step.begin``
     (reset) on entry, ``step.end`` on exit, and every ``stamp()`` inside
     issues a stamp on `device`'s buffer; a no-op while tracing is off."""
     if not _T.on:

@@ -1,8 +1,8 @@
 """The port's bench entry points on the CPU (``--device cpu``, the plain
 versions): ``bench_torch.py`` prints one line with ``bench.py``'s keys
-(its loop-placement A/B's included) and the port's own, passes its
-checks, and runs an
-acceptance configuration (``--config``); its checks fail a line that
+(but for its loop-placement A/B's) and the port's own, passes its
+checks, and runs every acceptance configuration (``--config``) at a
+small size; its checks fail a line that
 misses its reference; ``kernel_bench_torch.py`` gives a row for the fine
 operator, both fine transfers and the V-cycle; ``--dist N`` prints rank
 0's line of N gloo ranks; NCCL without a card per rank and a missing GPU
@@ -20,13 +20,13 @@ import kernel_bench_torch
 from sparsh_amg_tpu_torch import flagship
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# bench.py's keys of its loop-placement A/B: the port has one placement
 LOOP_KEYS = {"loop_mode", "loop_mode_ab_s", "dispatch_rtt_ms"}
 ADDED_KEYS = {"relres_host_fp64", "device_name", "power_limit_w",
               "setup_peak_bytes", "solve_peak_bytes",
               "solve_peak_reserved_bytes", "history", "launches",
-              "bytes_per_nnz", "chunk", "loop_mode_counts", "masked_steps",
-              "host_reads", "loop_mode_host_reads", "capture_s",
-              "instantiate_s", "pass_graph_s", "reference", "checks", "ok"}
+              "bytes_per_nnz", "host_reads", "capture_s", "instantiate_s",
+              "pass_graph_s", "reference", "checks", "ok"}
 DEVICE_KEYS = {"vs_baseline", "hbm_bw_GBs", "hbm_bw_spec_GBs",
                "speed_of_light_nnz_per_s", "vs_spec", "hbm_fraction",
                "hbm_fraction_spec", "device_name", "power_limit_w",
@@ -71,29 +71,19 @@ def _run(capsys, *argv):
 
 
 def test_bench_flagship_line(capsys):
-    """The default --loop-mode auto runs both placements (bench.py's A/B)
-    and reports the faster, with bench.py's loop keys; the host-mode
-    solve is held to the device mode's counts."""
+    """The line holds bench.py's keys but for its loop-placement A/B's,
+    and the port's own."""
     out = _run(capsys, "--n", "16")
-    want = bench_py_keys() | ADDED_KEYS
-    assert LOOP_KEYS <= want
+    want = (bench_py_keys() - LOOP_KEYS) | ADDED_KEYS
+    assert LOOP_KEYS <= bench_py_keys() and not LOOP_KEYS & set(out)
     assert len(want) > 35 and want <= set(out), want - set(out)
     assert out["ok"] and out["checks"] == {
-        "converged": True, "relres_host_fp64": True,
-        "host_refine_passes": True, "host_iterations": True}
-    assert set(out["loop_mode_ab_s"]) == set(out["loop_mode_counts"]) \
-        == {"host", "device"}
-    assert out["solve_s"] == out["loop_mode_ab_s"][out["loop_mode"]]
-    assert out["chunk"] == 12 and out["dispatch_rtt_ms"] > 0
+        "converged": True, "relres_host_fp64": True}
     assert out["capture_s"] == out["instantiate_s"] == 0.0   # CPU: eager
-    assert out["pass_graph_s"] == 0.0 and out["masked_steps"] == 0
-    # on the CPU the device mode's passes run eagerly: the guard is read
-    # after every step, prog once a pass
-    dev_iters, dev_passes = out["loop_mode_counts"]["device"]
-    assert out["loop_mode_host_reads"]["device"] == \
-        dev_iters + 2 * dev_passes
-    assert out["loop_mode_host_reads"]["host"] >= 2 * dev_passes
-    assert out["host_reads"] == out["loop_mode_host_reads"][out["loop_mode"]]
+    assert out["pass_graph_s"] == 0.0
+    # on the CPU the passes run eagerly: the guard is read after every
+    # step, prog once a pass
+    assert out["host_reads"] == out["iterations"] + 2 * out["refine_passes"]
     assert out["metric"] == "amg_pcg_poisson3d_spmv_throughput"
     assert out["unit"] == "nnz/s" and out["value"] > 0
     assert out["reference"] is None          # no count reference at 16^3
@@ -112,12 +102,10 @@ def test_bench_flagship_line(capsys):
 
 
 def test_bench_flagship_parameters_are_bench_pys():
-    """The flagship's parameters are bench.py:137-170's, its loop
-    placement flags bench.py's defaults (auto, chunk 12), and only the
-    flagship at 192 is held to BENCH_r05.json's 12 iterations / 2
-    passes (a device-mode count)."""
+    """The flagship's parameters are bench.py:137-170's, its loop the
+    device loop, and only the flagship at 192 is held to BENCH_r05.json's
+    12 iterations / 2 passes (a device-mode count)."""
     args = bench_torch.build_argparser().parse_args([])
-    assert (args.loop_mode, args.chunk) == ("auto", 12)
     _, _, params, krylov, ref, _ = bench_torch._case(args, None)
     want = dict(smoother="chebyshev", cycle="V", band_dtype="bfloat16",
                 coarsening="pmis", interpolation="extpi", dense_size=2048,
@@ -133,17 +121,41 @@ def test_bench_flagship_parameters_are_bench_pys():
     assert bench_torch._case(args, None)[4] is None
 
 
-@pytest.mark.parametrize("config,n", [("poisson2d_1024_wjacobi_V_cg", "48"),
-                                      ("elasticity3d", "4")])
+# every configuration bench_torch.py takes, at a small side with at least
+# two levels
+CONFIG_SIDES = [("poisson2d_1024_wjacobi_V_cg", "48"), ("elasticity3d", "4"),
+                ("aniso2d_1024_eps1e-3_rot45_aggW_bicgstab", "48"),
+                ("aniso2d_2048_eps1e-3_rot45_aggW_bicgstab", "48"),
+                ("aniso2d_1024_pmis_extpi_W_gs2_bicgstab", "48"),
+                ("convection3d_96_pmis_extpi_V_bicgstab", "12"),
+                ("jump2d_1024_random_1e4_V_cg", "48"),
+                ("delaunay_1024sq_rcm_l1jac_V_cg", "64"),
+                ("elasticity2d", "16")]
+
+
+def test_bench_config_sides_cover_every_configuration():
+    from sparsh_amg_tpu_torch import configs
+    assert {c for c, _ in CONFIG_SIDES} == {*configs.NAMES,
+                                            *bench_torch.SYSTEMS}
+
+
+@pytest.mark.parametrize("config,n", CONFIG_SIDES)
 def test_bench_config_line(capsys, config, n):
-    out = _run(capsys, "--config", config, "--n", n, "--dense-size", "64",
-               "--loop-mode", "device")
+    """Each configuration's line at a small side: ok, its method's metric,
+    at least two levels, no count reference (not the configuration's own
+    size), the passes run eagerly on the CPU."""
+    from sparsh_amg_tpu_torch import configs
+    out = _run(capsys, "--config", config, "--n", n, "--dense-size", "64")
     assert out["ok"] and out["config"] == config
-    assert out["metric"] == f"amg_pcg_{config}_spmv_throughput"
+    method = "cg" if config in bench_torch.SYSTEMS \
+        else configs.krylov(config).method
+    assert out["metric"] == \
+        f"amg_{'pcg' if method == 'cg' else method}_{config}_spmv_throughput"
     assert len(out["device_ops"]) == out["levels"] >= 2
     assert out["reference"] is None
-    if config == "elasticity3d":
-        assert out["device_ops"][0] == "BlockEllMatrix"
+    assert out["host_reads"] == out["iterations"] + 2 * out["refine_passes"]
+    if config.startswith("elasticity"):
+        assert "BlockEllMatrix" in out["device_ops"]
 
 
 def test_bench_config_reference_at_full_size():
@@ -162,68 +174,16 @@ def test_bench_config_reference_at_full_size():
 @pytest.mark.parametrize("change,ok", [
     ({}, True), ({"iterations": 14}, False), ({"iterations": 13}, True),
     ({"refine_passes": 3}, False), ({"relres_host_fp64": 2e-8}, False),
-    ({"converged": False}, False), ({"hbm_bw_GBs": 3400.0}, False),
-    ({"loop_mode_counts": {"device": [12, 2], "host": [14, 2]}}, True),
-    ({"loop_mode_counts": {"device": [12, 2], "host": [15, 2]}}, False),
-    ({"loop_mode_counts": {"device": [12, 2], "host": [12, 3]}}, False),
-    ({"loop_mode_counts": {"device": [14, 2], "host": [14, 2]}}, False),
-    ({"loop_mode_counts": {"host": [15, 2]}}, True),
-    ({"loop_mode_counts": {"host": [16, 2]}}, False)])
+    ({"converged": False}, False), ({"hbm_bw_GBs": 3400.0}, False)])
 def test_bench_checks_fail_a_line_off_its_reference(change, ok):
-    """The device-mode counts are held to the reference; host-mode
-    counts to the device mode's passes and iterations plus one per pass
-    (to the reference's, with its slack, when no device-mode solve ran)."""
+    """The counts are held to the reference's passes and its iterations
+    within the slack."""
     line = {"converged": True, "relres_host_fp64": 9e-10, "iterations": 12,
             "refine_passes": 2, "hbm_bw_GBs": 3000.0,
             "hbm_bw_spec_GBs": 3350.0,
             "reference": {"iterations": 12, "refine_passes": 2,
                           "iteration_slack": 1}}
     assert all(bench_torch.checks({**line, **change}, 1e-8).values()) == ok
-
-
-@pytest.mark.parametrize("host,ok", [
-    ([57, 4], True), ([59, 4], True), ([55, 4], True), ([60, 4], False),
-    ([54, 4], False), ([57, 5], False), ([57, 3], False)])
-def test_bench_checks_hold_a_host_reference_of_its_own(host, ok):
-    """A reference with a host-mode count of its own (elasticity2d at
-    chunk 12) holds the host mode to that count's passes and to its
-    iterations within the slack, in place of the device mode's
-    iterations plus one per pass, which it does not meet; the device mode
-    stays held to its own count."""
-    line = {"converged": True, "relres_host_fp64": 1.4e-9, "iterations": 36,
-            "refine_passes": 4, "hbm_bw_GBs": None,
-            "loop_mode_counts": {"device": [36, 4], "host": host},
-            "reference": {"iterations": 36, "refine_passes": 4,
-                          "iteration_slack": 2,
-                          "host": {"iterations": 57, "refine_passes": 4}}}
-    got = bench_torch.checks(line, 1e-8)
-    assert got["host_iterations"] and got["host_refine_passes"] or not ok
-    assert all(got.values()) == ok
-    line["loop_mode_counts"]["device"] = [39, 4]
-    assert not bench_torch.checks(line, 1e-8)["iterations"]
-
-
-@pytest.mark.parametrize("config,chunk,host", [
-    ("elasticity2d", 12, {"iterations": 57, "refine_passes": 4}),
-    ("elasticity2d", 4, None), ("elasticity3d", 12, None)])
-def test_bench_host_reference_only_where_the_reference_has_one(config, chunk,
-                                                               host):
-    """Only elasticity2d at its own size and chunk 12 carries a host-mode
-    reference (the JAX package's count there, systems.REFERENCE); every
-    other line keeps the device mode's bound."""
-    args = bench_torch.build_argparser().parse_args(
-        ["--config", config, "--chunk", str(chunk)])
-    ref = bench_torch._case(args, None)[4]
-    assert ref.get("host") == host
-    line = {"converged": True, "relres_host_fp64": 1e-9, "hbm_bw_GBs": None,
-            "iterations": ref["iterations"],
-            "refine_passes": ref["refine_passes"],
-            "loop_mode_counts": {
-                "device": [ref["iterations"], ref["refine_passes"]],
-                "host": [ref["iterations"] + 21, ref["refine_passes"]]},
-            "reference": ref}
-    assert bench_torch.checks(line, 1e-8)["host_iterations"] == \
-        (host is not None)
 
 
 def test_kernel_bench_rows(capsys):
@@ -242,6 +202,15 @@ def test_kernel_bench_rows(capsys):
     assert rows["vcycle"]["nnz"] > rows["spmv_l0"]["nnz"]
 
 
+@pytest.mark.parametrize("flag", [("--loop-mode", "host"), ("--chunk", "12")])
+def test_bench_refuses_the_placement_flags(flag, capsys):
+    """bench_torch.py has no loop placement to choose: --loop-mode and
+    --chunk are refused as unknown arguments."""
+    with pytest.raises(SystemExit):
+        bench_torch.build_argparser().parse_args(list(flag))
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
 def test_dist_and_missing_gpu_raise():
     """--dist on NCCL needs a card per rank: on the CPU it raises, naming
     gloo; without a GPU the default device raises."""
@@ -257,13 +226,11 @@ def test_dist_and_missing_gpu_raise():
 
 @pytest.mark.parametrize("ranks", [1, 2])
 def test_bench_dist_line(capsys, ranks):
-    """--dist N on the CPU (host loop mode, the placement the dry runs
-    use): rank 0 prints the serial line's keys plus the ranks and the
-    backend, passes the serial line's checks with its counts; bytes are
-    priced on one rank's layouts only."""
-    serial = _run(capsys, "--n", "16", "--loop-mode", "host")
-    out = _run(capsys, "--n", "16", "--loop-mode", "host", "--dist",
-               str(ranks))
+    """--dist N on the CPU: rank 0 prints the serial line's keys plus the
+    ranks and the backend, passes the serial line's checks with its
+    counts; bytes are priced on one rank's layouts only."""
+    serial = _run(capsys, "--n", "16")
+    out = _run(capsys, "--n", "16", "--dist", str(ranks))
     assert set(serial) | {"dist_ranks", "dist_backend", "dist_capture",
                           "rank_solve_s", "device_ops"} == set(out)
     assert (out["dist_ranks"], out["dist_backend"]) == (ranks, "gloo")

@@ -2,9 +2,10 @@
 ``--krylov`` and ``--smoother`` solves and prints the JAX CLI's JSON keys,
 a MatrixMarket matrix and right-hand side round-trip through
 ``utils/io``, a saved hierarchy reloads to the same solve, ``--profile``
-writes a trace, ``--dist N`` solves on N gloo ranks, ``--loop-mode`` and
-``--chunk`` reach ``KrylovParams``, and NCCL without a card per rank and
-a missing GPU raise."""
+writes a trace, ``--dist N`` solves on N gloo ranks, each ``--krylov``
+takes the counts of the JAX CLI's ``--loop-mode device`` (the port's one
+placement; ``--loop-mode`` and ``--chunk`` are refused), and NCCL without
+a card per rank and a missing GPU raise."""
 import json
 import os
 
@@ -105,28 +106,6 @@ def test_cli_refuses_dist_and_a_missing_gpu():
             cli.run(SMALL)                   # --device defaults to cuda
     args = cli.build_argparser().parse_args([])
     assert args.device == "cuda"
-    assert (args.loop_mode, args.chunk) == ("host", 4)   # the JAX CLI's
-
-
-@pytest.mark.parametrize("flags,placed", [
-    ((), ("host", 4)), (("--loop-mode", "device"), ("device", 4)),
-    (("--loop-mode", "host", "--chunk", "12"), ("host", 12)),
-    (("--loop-mode", "auto", "--chunk", "2"), ("device", 2))])
-def test_cli_loop_mode_reaches_krylov_params(capsys, monkeypatch, jax_keys,
-                                             flags, placed):
-    """--loop-mode and --chunk (the JAX CLI's flags and defaults) go into
-    the solver's KrylovParams (auto resolved there: a CPU launch and read
-    take microseconds, so device), and the line keeps the JAX CLI's
-    keys."""
-    from sparsh_amg_tpu_torch.solve import solver as tsolver
-    seen = []
-    real = tsolver.check_krylov
-    monkeypatch.setattr(tsolver, "check_krylov",
-                        lambda kr, dev: seen.append(real(kr, dev))
-                        or seen[-1])
-    got = _port(capsys, *flags)
-    assert [(k.loop_mode, k.chunk) for k in seen] == [placed]
-    assert set(got) == jax_keys and got["converged"]
 
 
 @pytest.mark.parametrize("ranks", [1, 2])
@@ -141,6 +120,31 @@ def test_cli_dist_on_gloo_ranks(capsys, jax_keys, ranks):
     assert got["converged"] and got["relres"] <= 1e-8, got
     assert abs(got["iterations"] - serial["iterations"]) <= 1
     assert got["refine_passes"] == serial["refine_passes"]
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
+def test_cli_takes_the_jax_cli_device_counts(capsys, method):
+    """Each --krylov through the port's CLI (its one loop placement) and
+    through the JAX CLI with --loop-mode device: the same passes, the
+    iterations within 1 (2 for BiCGStab), both converged."""
+    flags = ("--krylov", method)
+    want = jcli.run([*SMALL, "--loop-mode", "device", *flags])
+    capsys.readouterr()
+    got = _port(capsys, *flags)
+    assert got["converged"] and want["converged"], (got, want)
+    assert got["refine_passes"] == want["refine_passes"], (got, want)
+    assert abs(got["iterations"] - want["iterations"]) <= \
+        (2 if method == "bicgstab" else 1), (got, want)
+
+
+@pytest.mark.parametrize("flag", [("--loop-mode", "device"),
+                                  ("--chunk", "4")])
+def test_cli_refuses_the_placement_flags(capsys, flag):
+    """The port's CLI has no loop placement to choose: the JAX CLI's
+    --loop-mode and --chunk are refused as unknown arguments."""
+    with pytest.raises(SystemExit):
+        cli.run([*SMALL, "--device", "cpu", *flag])
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 def test_timing_utilities():

@@ -268,13 +268,12 @@ def test_two_gloo_ranks_solve_with_the_one_rank_counts():
                                                          launch_processes)
     m = 16
     res = launch_processes(2, "poisson3d", m, setup="global", device="cpu",
-                           backend="gloo", loop_mode="device", timeout=300,
+                           backend="gloo", timeout=300,
                            threads=1)
     A = poisson3d(m)
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     one = DistAMGSolver(A, params=_flagship_params(),
-                        krylov=KrylovParams(tol=1e-8, maxiter=60,
-                                            loop_mode="device"),
+                        krylov=KrylovParams(tol=1e-8, maxiter=60),
                         device="cpu").solve(b)
     assert np.linalg.norm(b - A @ one.x) / np.linalg.norm(b) <= 1e-8
     for r in res:

@@ -287,11 +287,10 @@ def test_finish_kernel_captured_matches_eager(cuda):
         dia_finish64(A64, bad, d, b64, b, rr)
 
 
-def _plain_finish_fn(loop, bufs):
+def _plain_finish(A64, x64, d, b64, b, rr, dot):
     """The loop's finish through the plain composition."""
     from sparsh_amg_tpu_torch.ops.fp64 import finish64_plain
-    return finish64_plain(loop._A64, bufs[0], loop.state[0], loop.b64,
-                          loop._dot)
+    return finish64_plain(A64, x64, d, b64, dot)
 
 
 def test_flagship_solve_with_the_finish_kernel(cuda, monkeypatch):
@@ -311,7 +310,7 @@ def test_flagship_solve_with_the_finish_kernel(cuda, monkeypatch):
     got, launches = counted(lambda: s.solve(rhs))
     plain = copy.copy(s)
     plain._reset_loop_state()
-    monkeypatch.setattr(tsolver._Loop, "_finish_fn", _plain_finish_fn)
+    monkeypatch.setattr(tsolver, "finish64", _plain_finish)
     plain.solve(rhs, tol=1e-2)
     want, plain_launches = counted(lambda: plain.solve(rhs))
     assert (got.iterations, got.refine_passes) == (12, 2)
@@ -855,20 +854,18 @@ def test_dist_two_ranks_share_the_card_through_gloo(cuda, setup):
         assert res[1]["row_range"][1] == res[0]["n"]
 
 
-@pytest.mark.parametrize("mode", ["device", "host"])
-def test_dist_two_nccl_ranks_capture_their_loop(cuda, mode):
+def test_dist_two_nccl_ranks_capture_their_loop(cuda):
     """Two NCCL ranks, one card each, run the process-local solve from
     captured graphs with the halos and all-reduces inside them: the same
     counts on both ranks (and the JAX record's 12 / 2 +-1), x with the same
-    bits as the same solve run eagerly from the same state, no masked
-    step, one host read per pass in the device mode (its pass graphs
-    built) and the eager solve's reads in the host mode, and no event
-    node in the captured step (a WHILE body holds none)."""
+    bits as the same solve run eagerly from the same state, one host read
+    per pass (its pass graphs built), and no event node in the captured
+    step (a WHILE body holds none)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs 2 CUDA cards: NCCL ranks take one card each")
     from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
     res = launch_processes(2, "poisson3d", 48, setup="blocked",
-                           device="cuda", backend="nccl", loop_mode=mode,
+                           device="cuda", backend="nccl",
                            compare_eager=True, timeout=300)
     assert len({(r["iterations"], r["passes"]) for r in res}) == 1
     for r in res:
@@ -878,21 +875,16 @@ def test_dist_two_nccl_ranks_capture_their_loop(cuda, mode):
         assert (r["eager"]["iterations"], r["eager"]["passes"]) == \
             (r["iterations"], r["passes"]), r
         assert r["same_bits"], r
-        assert r["masked_steps"] == 0, r
         kinds = r["step_node_kinds"]
         assert kinds["kernel"] > 0, kinds
         assert not {"wait_event", "event_record"} & set(kinds), kinds
         assert r["launches"]["dia_spmv"] > 0, r
         assert r["launches"]["ell_spmv"] > 0, r
-        if mode == "device":
-            assert r["host_reads"] == r["passes"], r
-            assert r["pass_graph_s"] > 0, r
-            assert len(r["pass_ms"]) == r["passes"], r
-            assert 0 < r["pass_share"] < 1, r
-            assert r["launches"]["loop_guard"] > 0, r
-        else:
-            assert r["host_reads"] == r["eager"]["host_reads"], r
-            assert r["pass_ms"] == [], r
+        assert r["host_reads"] == r["passes"], r
+        assert r["pass_graph_s"] > 0, r
+        assert len(r["pass_ms"]) == r["passes"], r
+        assert 0 < r["pass_share"] < 1, r
+        assert r["launches"]["loop_guard"] > 0, r
 
 
 def test_nccl_ranks_that_raise_after_a_captured_solve_exit(cuda):
@@ -919,8 +911,7 @@ def test_dist_nccl_collectives_replay_as_their_eager_twin(cuda):
     from sparsh_amg_tpu_torch.parallel.multihost import launch_processes
     res = launch_processes(4 if cards >= 4 else 2, "poisson3d", 96,
                            setup="blocked", device="cuda", backend="nccl",
-                           loop_mode="device", compare_eager=True,
-                           timeout=600)
+                           compare_eager=True, timeout=600)
     assert len({(r["iterations"], r["passes"], r["collectives"])
                 for r in res}) == 1
     for r in res:
@@ -954,8 +945,7 @@ def test_rank_cell_at_96_reports_four_cards(cuda):
 
 
 def _flagship_small(cuda, **kw):
-    """The flagship's parameters on poisson3d(24) in the device loop mode
-    (chunk 4), its rhs on the card."""
+    """The flagship's parameters on poisson3d(24), its rhs on the card."""
     import dataclasses
     from sparsh_amg_tpu_torch import AMGSolver, flagship
     from sparsh_amg_tpu_torch.models import poisson3d
@@ -967,11 +957,10 @@ def _flagship_small(cuda, **kw):
 
 
 def test_captured_device_mode_matches_eager(cuda):
-    """The device mode as one WHILE-node graph launch per pass against the
-    same passes run eagerly (the loop in Python, the guard kernel asked
-    before every step), both from the same estimates: equal counts and
-    history, x with the same bits, one host read per pass and no masked
-    step."""
+    """Each pass as one WHILE-node graph launch against the same passes
+    run eagerly (the loop in Python, the guard kernel asked before every
+    step), both from the same estimates: equal counts and history, x with
+    the same bits, one host read per pass."""
     import copy
     A, b, s, rhs = _flagship_small(cuda)
     s.warm()
@@ -983,12 +972,11 @@ def test_captured_device_mode_matches_eager(cuda):
     assert all(g.graph is not None for g in loop.all_graphs())
     assert len(loop.passes) == 2 and all(
         p.exec is not None for p in loop.passes.values())
-    assert not loop.chunks
     assert (got.iterations, got.refine_passes, got.history) == \
         (want.iterations, want.refine_passes, want.history)
     assert abs(got.relres - want.relres) <= 1e-12 * want.relres
     np.testing.assert_array_equal(got.x, want.x)
-    assert got.masked_steps == 0 and got.host_reads == got.refine_passes
+    assert got.host_reads == got.refine_passes
     assert want.host_reads == want.iterations + 2 * want.refine_passes
     assert np.linalg.norm(b - A @ got.x) / np.linalg.norm(b) <= 1e-8
 
@@ -1021,9 +1009,8 @@ def test_replay_launches_match_the_profiler(cuda):
     launches, k times the step's and k + 1 guard launches, k read from the
     device; the profiler sees every one of those kernels (it reports a
     WHILE body's kernels once per launch, not once per iteration).  Over
-    one replay of the step graph and of a host-mode chunk, counted()
-    reports by wrapper the kernels the profiler sees."""
-    import dataclasses
+    one replay of the step graph, counted() reports by wrapper the
+    kernels the profiler sees."""
     _, _, s, rhs = _flagship_small(cuda)
     s.warm()
     loop = s._loop()
@@ -1045,12 +1032,6 @@ def test_replay_launches_match_the_profiler(cuda):
     _, counts, seen = _profiled_wrappers(loop.step.run)
     assert counts == seen
     assert {w.__name__: n for w, n in loop.step.per_replay.items()} == seen
-    s.krylov = dataclasses.replace(s.krylov, loop_mode="host", chunk=12)
-    g = loop.chunk(12)
-    g.run()
-    _, counts, seen = _profiled_wrappers(g.run)
-    assert counts == seen
-    assert {w.__name__: n for w, n in g.per_replay.items()} == seen
 
 
 @pytest.mark.parametrize("method,case", [
@@ -1107,16 +1088,18 @@ def test_copied_solver_replays_the_same_graphs(cuda):
     solve of another rhs in between leaves the solver's next solve as it
     was, and no new graph is captured."""
     import copy
-    A, b, s, rhs = _flagship_small(cuda, loop_mode="host", chunk=12)
+    A, b, s, rhs = _flagship_small(cuda)
     s.warm()
     first = copy.copy(s).solve(rhs)
-    graphs = {k: list(lp.chunks) for k, lp in s._loops.items()}
+    graphs = {k: [lp.step.graph, *(p.exec for p in lp.passes.values())]
+              for k, lp in s._loops.items()}
     other = copy.copy(s)
     b2 = np.random.default_rng(1).standard_normal(A.shape[0])
     r2 = other.solve(b2)
     again = copy.copy(s).solve(rhs)
     assert other._loops is s._loops
-    assert {k: list(lp.chunks) for k, lp in s._loops.items()} == graphs
+    assert {k: [lp.step.graph, *(p.exec for p in lp.passes.values())]
+            for k, lp in s._loops.items()} == graphs
     assert r2.converged and np.linalg.norm(b2 - A @ r2.x) \
         <= 1e-8 * np.linalg.norm(b2)
     assert (again.iterations, again.history) == \
@@ -1150,8 +1133,8 @@ def test_capture_runs_with_the_collector_off(cuda):
         gc.enable()
 
 
-def test_cli_host_mode_chunk_12_on_the_card(capsys):
-    """--loop-mode host --chunk 12 through the CLI on the card."""
+def test_cli_on_the_card(capsys):
+    """The flagship's coarsening through the CLI on the card."""
     import json
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -1159,7 +1142,7 @@ def test_cli_host_mode_chunk_12_on_the_card(capsys):
     out = cli.run(["--problem", "poisson3d", "--n", "32768",
                    "--coarsening", "pmis", "--interpolation", "extpi",
                    "--smoother", "chebyshev", "--dense-size", "256",
-                   "--loop-mode", "host", "--chunk", "12", "--json"])
+                   "--json"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == json.loads(json.dumps(out))
     assert out["converged"] and out["relres"] <= 1e-8 and \
@@ -1175,8 +1158,7 @@ def _trace_solver(cuda):
     from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
     from sparsh_amg_tpu_torch.solve.solver import AMGSolver
     A = poisson2d(32)
-    s = AMGSolver(A, AMGParams(coarse_size=40),
-                  KrylovParams(loop_mode="device"), device=cuda)
+    s = AMGSolver(A, AMGParams(coarse_size=40), KrylovParams(), device=cuda)
     return s, np.random.default_rng(0).standard_normal(A.shape[0])
 
 

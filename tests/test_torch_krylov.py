@@ -1,9 +1,10 @@
-"""The port's BiCGStab and stationary iterations (``solve/krylov.py``)
-against the JAX package's on the same small dense nonsymmetric operator
-and Jacobi preconditioner: five steps from the same right-hand side give
-the same state at rtol 1e-5 (fp32 sums in another order), with the same
-iteration count, and a BiCGStab breakdown (a shadow residual orthogonal
-to r) freezes x and r in both."""
+"""The port's BiCGStab and stationary iterations (``solve/krylov.py``: the
+init and the in-place step on the state's buffers, as the loop runs
+them) against the JAX package's on the same small dense nonsymmetric
+operator and Jacobi preconditioner: five steps from the same right-hand
+side give the same state at rtol 1e-5 (fp32 sums in another order), with
+the same iteration count, and a BiCGStab breakdown (a shadow residual
+orthogonal to r) freezes x and r in both."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -53,6 +54,11 @@ def _close(got, want):
                                atol=RTOL * max(np.abs(want).max(), 1e-30))
 
 
+def _buffers(state):
+    """The state as the loop holds it: each entry a buffer of its own."""
+    return [t.clone() for t in state]
+
+
 def _same_state(ts, js):
     assert len(ts) == len(js)
     for t, j in zip(ts, js):
@@ -71,10 +77,11 @@ def test_bicgstab_steps_match_jax(compensated):
     td = lambda x, y: tdot(x, y, compensated)
     jd = lambda x, y: jdot(x, y, compensated=compensated)
     bt, bj = torch.from_numpy(b), jnp.asarray(b)
-    ts, js = tk.bicgstab_init(tmv, bt, td), jk.bicgstab_init(jmv, bj, jd)
+    ts = _buffers(tk.bicgstab_init(tmv, bt, td))
+    js = jk.bicgstab_init(jmv, bj, jd)
     _same_state(ts, js)
     for _ in range(5):
-        ts = tk.bicgstab_step(tmv, tpc, td, bt, ts)
+        tk.bicgstab_step_(tmv, tpc, td, bt, ts)
         js = jk.bicgstab_step(jmv, jpc, jd, bj, js)
         _same_state(ts, js)
     assert ts[8] == 5 and not bool(ts[9])
@@ -92,10 +99,10 @@ def test_bicgstab_breakdown_freezes_the_state():
     rhat[0], rhat[1] = b[1], -b[0]           # rhat . b == 0 exactly
     rt, rj = torch.from_numpy(rhat), jnp.asarray(rhat)
     bt, bj = torch.from_numpy(b), jnp.asarray(b)
-    ts = tk.bicgstab_init(tmv, bt, tdot)
+    ts = _buffers(tk.bicgstab_init(tmv, bt, tdot))
     js = jk.bicgstab_init(jmv, bj, jdot)
     for _ in range(3):
-        ts = tk.bicgstab_step(tmv, tpc, tdot, rt, ts)
+        tk.bicgstab_step_(tmv, tpc, tdot, rt, ts)
         js = jk.bicgstab_step(jmv, jpc, jdot, rj, js)
         assert bool(ts[9]) and bool(js[9])
         np.testing.assert_array_equal(ts[0].numpy(), np.zeros(N))
@@ -108,11 +115,11 @@ def test_stationary_steps_match_jax():
     A, dinv, b = _operator(2)
     tmv, tpc, jmv, jpc = _ops(A, dinv)
     bt, bj = torch.from_numpy(b), jnp.asarray(b)
-    ts = tk.stationary_init(tmv, tpc, bt, tdot)
+    ts = _buffers(tk.stationary_init(tmv, tpc, bt, tdot))
     js = jk.stationary_init(jmv, jpc, bj, jdot)
     _same_state(ts, js)
     for _ in range(5):
-        ts = tk.stationary_step(tmv, tpc, tdot, ts)
+        tk.stationary_step_(tmv, tpc, tdot, ts)
         js = jk.stationary_step(jmv, jpc, jdot, js)
         _same_state(ts, js)
     assert ts[3] == 5
@@ -121,9 +128,8 @@ def test_stationary_steps_match_jax():
 
 def test_solver_stops_on_breakdown(monkeypatch):
     """The solver's loop ends a BiCGStab pass at the first step that
-    reports a breakdown (device loop mode: the loop condition sees the
-    flag and no step runs after it), read in the pass's one sync with
-    ||r||^2."""
+    reports a breakdown (the loop condition sees the flag and no step runs
+    after it), read in the pass's one sync with ||r||^2."""
     from sparsh_amg_tpu.models.poisson import poisson2d
     from sparsh_amg_tpu_torch import AMGSolver
     from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
@@ -134,13 +140,13 @@ def test_solver_stops_on_breakdown(monkeypatch):
         args[-1][9].fill_(True)
     monkeypatch.setattr(tk, "bicgstab_step_", broken)
     s = AMGSolver(poisson2d(32), AMGParams(coarse_size=64, dense_size=256),
-                  KrylovParams(method="bicgstab", refine=False,
-                               loop_mode="device"), device="cpu")
+                  KrylovParams(method="bicgstab", refine=False),
+                  device="cpu")
     b = torch.zeros(s.n_pad, dtype=torch.float64)
     b[: s.n] = 1.0
     loop = s._loop()
     loop.b64.copy_(b)
-    iters, rnsq, steps, reads = s._pass(loop, True, 1e-8, 50)
+    iters, rnsq, reads = s._pass(loop, True, 1e-8, 50)
     rr, k, brk, rr0, _ = loop.prog.tolist()
     assert iters == k == 1 and brk == 1.0 and 0.0 < rr / rr0 < 1.0
-    assert steps == iters and reads == iters + 2 and rnsq > 0.0
+    assert reads == iters + 2 and rnsq > 0.0

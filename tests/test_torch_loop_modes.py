@@ -1,15 +1,13 @@
-"""The port's Krylov loop placement (``KrylovParams.loop_mode`` and
-``chunk``) against the JAX package's on the CPU, on the same seeded
-inputs: the device mode's counts are the JAX device mode's (+-1 CG, +-2
-BiCGStab, the same passes), the host mode lands within one iteration per
-pass of the device mode and of the JAX host mode, chunk 12 on a cold
-solver and "auto" behave as in the JAX package, and the stationary
-iteration runs in both modes.  The device mode (one loop per pass, a
-step at a time) gives the bits of ``chunk=1``; a predicated step past
-convergence changes nothing;
-``_pick_chunk`` is the JAX package's; ``counted()`` sees the plain
-versions' zero launches.  The tests mirror ``tests/test_aux.py:89-147``
-and ``tests/test_solver.py:224-246``.
+"""The port's one placement of the Krylov loop (each refinement pass one
+device-resident loop, the JAX package's device loop mode) against the JAX
+package's device mode on the CPU, on the same seeded inputs: the same
+passes and iterations within +-1 (CG and the stationary iteration) or
++-2 (BiCGStab).  A solver built with default KrylovParams runs that loop;
+any other placement is refused at construction; the benchmark's
+configuration files load as KrylovParams; a second solve on one solver
+reuses the loop's static buffers and gives the first solve's bits;
+``counted()`` sees the plain versions' zero launches.  The tests mirror
+``tests/test_aux.py:89-147`` and ``tests/test_solver.py:224-246``.
 
 Importing this module limits numpy's and scipy's OpenBLAS to one thread
 for the rest of the process.  Every pytest-xdist worker imports every
@@ -20,6 +18,8 @@ multithreaded OpenBLAS call after the forked ranks of
 hung the run whenever ``tests/test_configs.py`` followed on the same
 worker."""
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -32,13 +32,14 @@ from sparsh_amg_tpu.models.poisson import poisson2d, poisson3d
 from sparsh_amg_tpu.solve import solver as jsolver
 from sparsh_amg_tpu_torch import AMGSolver
 from sparsh_amg_tpu_torch.ops import counted
-from sparsh_amg_tpu_torch.ops.blas import dot
 from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
-from sparsh_amg_tpu_torch.solve import krylov as tk
-from sparsh_amg_tpu_torch.solve import solver as tsolver
+from sparsh_amg_tpu_torch.parallel import DistAMGSolver
 from sparsh_amg_tpu_torch.solve.graphs import ChunkGraph
+from sparsh_amg_tpu_torch.solve.solver import check_krylov
 
 threadpoolctl.threadpool_limits(1, user_api="blas")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -51,182 +52,167 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _both(A, b, p, **kw):
-    """{mode: (port result, JAX result)} for the host and device modes."""
-    out = {}
-    for mode in ("host", "device"):
-        kr = KrylovParams(loop_mode=mode, **kw)
-        port = AMGSolver(A, p, kr, device="cpu").solve(b)
-        jax_ = jsolver.AMGSolver(
-            A, jparams.AMGParams(**dataclasses.asdict(p)),
-            jparams.KrylovParams(**dataclasses.asdict(kr))).solve(b)
-        out[mode] = (port, jax_)
-    return out
+def _jax_device_mode(A, b, p, kr):
+    """The JAX package's solve in its device loop mode, with the port's
+    parameters."""
+    kw = dataclasses.asdict(kr)
+    kw["loop_mode"] = "device"
+    return jsolver.AMGSolver(A, jparams.AMGParams(**dataclasses.asdict(p)),
+                             jparams.KrylovParams(**kw)).solve(b)
 
 
 def _relres(A, b, r):
     return np.linalg.norm(b - A @ r.x) / np.linalg.norm(b)
 
 
-def _held(runs, A, b, slack=1):
-    """Converged, relres <= 1e-8; device counts the JAX device mode's;
-    host within one iteration per pass of the port's device mode and of
-    the JAX host mode, with the same passes."""
-    (ph, jh), (pd, jd) = runs["host"], runs["device"]
-    for r in (ph, jh, pd, jd):
+def _held(A, b, p, kr=None, slack=1):
+    """The port's solve (default KrylovParams where `kr` is None) and the
+    JAX device mode's: both converged to 1e-8, the same passes, the
+    iterations within `slack`.  Returns the port's result."""
+    port = AMGSolver(A, p, kr, device="cpu").solve(b)
+    want = _jax_device_mode(A, b, p, kr or KrylovParams())
+    for r in (port, want):
         assert r.converged and _relres(A, b, r) <= 1e-8, r
-    assert pd.refine_passes == jd.refine_passes
-    assert abs(pd.iterations - jd.iterations) <= slack, (pd, jd)
-    assert ph.refine_passes == pd.refine_passes == jh.refine_passes
-    assert ph.iterations <= pd.iterations + ph.refine_passes
-    assert abs(ph.iterations - jh.iterations) <= ph.refine_passes, \
-        (ph.history, jh.history)
-    assert pd.masked_steps == 0 and ph.masked_steps == 0
+    assert port.refine_passes == want.refine_passes, (port, want)
+    assert abs(port.iterations - want.iterations) <= slack, \
+        (port.history, want.history)
+    return port
 
 
 def test_host_device_loop_modes_agree():
-    """test_aux.py:89-101: poisson2d(32), CG, chunk 4."""
+    """test_aux.py:89-101: poisson2d(32), CG."""
     A = poisson2d(32)
     b = np.random.default_rng(2).standard_normal(A.shape[0])
-    _held(_both(A, b, AMGParams(coarse_size=40)), A, b)
+    _held(A, b, AMGParams(coarse_size=40), KrylovParams())
 
 
-def test_host_chunk_scheduler_tight_and_auto_mode():
+FLAGSHIP_20 = AMGParams(smoother="chebyshev", coarsening="pmis",
+                        interpolation="extpi", interp_max=4,
+                        rap_drop_tol=0.01, agg_levels=1,
+                        interp_max_composed=5, aggressive="pmis2",
+                        coarse_size=400)
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
+def test_host_chunk_scheduler_tight_and_auto_mode(method):
     """test_aux.py:104-124: the flagship's coarsening on poisson3d(20),
-    chunk 12 on a cold solver; "auto" resolves at construction (a CPU
-    launch and scalar read take microseconds: device) and converges."""
+    each method on a cold solver, against the JAX device mode."""
     A = poisson3d(20)
     b = np.random.default_rng(7).standard_normal(A.shape[0])
-    p = AMGParams(smoother="chebyshev", coarsening="pmis",
-                  interpolation="extpi", interp_max=4, rap_drop_tol=0.01,
-                  agg_levels=1, interp_max_composed=5, aggressive="pmis2",
-                  coarse_size=400)
-    _held(_both(A, b, p, chunk=12), A, b)
-    auto = AMGSolver(A, p, KrylovParams(loop_mode="auto"), device="cpu")
-    assert auto.krylov.loop_mode == "device"
-    assert auto.solve(b).converged
+    _held(A, b, FLAGSHIP_20, KrylovParams(method=method, maxiter=200),
+          slack=2 if method == "bicgstab" else 1)
 
 
 def test_bicgstab_host_mode():
-    """test_aux.py:140-147: BiCGStab in both modes on poisson2d(24)."""
+    """test_aux.py:140-147: BiCGStab on poisson2d(24)."""
     A = poisson2d(24)
     b = np.random.default_rng(4).standard_normal(A.shape[0])
-    _held(_both(A, b, AMGParams(coarse_size=40), method="bicgstab"), A, b,
+    _held(A, b, AMGParams(coarse_size=40), KrylovParams(method="bicgstab"),
           slack=2)
 
 
 def test_stationary_amg_solve_modes_agree():
     """test_solver.py:224-246: the stationary iteration (method "amg")
-    converges in both modes, the host mode within its chunk overrun of
-    the device mode, and PCG needs fewer iterations."""
+    converges with the JAX device mode's counts, and PCG needs fewer
+    iterations."""
     A = poisson2d(40)
     b = np.random.default_rng(3).standard_normal(A.shape[0])
     p = AMGParams(smoother="chebyshev")
-    runs = _both(A, b, p, method="amg", maxiter=200)
-    _held(runs, A, b)
-    assert abs(runs["host"][0].iterations
-               - runs["device"][0].iterations) <= 4
-    pcg = AMGSolver(A, p, KrylovParams(loop_mode="device"),
-                    device="cpu").solve(b)
-    assert pcg.iterations < runs["device"][0].iterations
+    amg = _held(A, b, p, KrylovParams(method="amg", maxiter=200))
+    pcg = AMGSolver(A, p, KrylovParams(), device="cpu").solve(b)
+    assert pcg.iterations < amg.iterations
 
 
 @pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
-def test_device_mode_gives_the_bits_of_chunk_one(method):
-    """Device mode at chunks 1, 4 and 12 (its loop steps one at a time
-    whatever the chunk) returns the same x, counts and history as the
-    host loop that reads the host after every iteration (chunk 1)."""
-    A = poisson2d(32)
-    b = np.random.default_rng(5).standard_normal(A.shape[0])
-    p = AMGParams(coarse_size=40)
-    res = {}
-    for mode, chunk in (("host", 1), ("device", 1), ("device", 4),
-                        ("device", 12)):
-        kr = KrylovParams(method=method, loop_mode=mode, chunk=chunk,
-                          maxiter=200)
-        res[(mode, chunk)] = AMGSolver(A, p, kr, device="cpu").solve(b)
-    one = res[("host", 1)]
-    assert one.converged and one.masked_steps == 0
-    for key, r in res.items():
-        np.testing.assert_array_equal(r.x, one.x, err_msg=str(key))
-        assert (r.iterations, r.refine_passes, r.history) == \
-            (one.iterations, one.refine_passes, one.history), key
+def test_default_krylov_params_run_the_device_loop(method):
+    """A solver given no KrylovParams (CG), or only a method, runs the
+    device loop: the JAX device mode's counts, and on the CPU the guard
+    read after every step plus one read of prog a pass."""
+    A = poisson2d(24)
+    b = np.random.default_rng(8).standard_normal(A.shape[0])
+    assert KrylovParams().loop_mode == "device"
+    kr = None if method == "cg" else KrylovParams(method=method)
+    res = _held(A, b, AMGParams(coarse_size=40), kr,
+                slack=2 if method == "bicgstab" else 1)
+    assert res.host_reads == res.iterations + 2 * res.refine_passes
 
 
-def _operator(seed=0, n=40):
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((n, n)) * 0.3 + np.diag(np.full(n, 4.0))
-    return (torch.from_numpy(A.astype(np.float32)),
-            torch.from_numpy((1.0 / np.diag(A)).astype(np.float32)),
-            torch.from_numpy(rng.standard_normal(n).astype(np.float32)))
+@pytest.mark.parametrize("placement", ["host", "auto", "while"])
+def test_solver_refuses_another_placement(placement):
+    """The port has one placement: check_krylov, and with it every
+    solver's construction, refuses any other loop_mode (the JAX package's
+    host and auto modes included) with a ValueError naming the device
+    loop."""
+    A = poisson2d(16)
+    kr = KrylovParams(loop_mode=placement)
+    with pytest.raises(ValueError, match="device loop"):
+        check_krylov(kr)
+    with pytest.raises(ValueError, match="device loop"):
+        AMGSolver(A, AMGParams(coarse_size=40), kr, device="cpu")
+    with pytest.raises(ValueError, match="device loop"):
+        DistAMGSolver(A, params=AMGParams(coarse_size=40), krylov=kr,
+                      device="cpu")
 
 
+@pytest.mark.parametrize("config", sorted(
+    p.name for p in (ROOT / "amgbench" / "configs").glob("*.json")))
+def test_benchmark_config_loads_as_krylov_params(config):
+    """The benchmark builds KrylovParams(**cfg["krylov"]) from each of its
+    configuration files, which carry loop_mode and chunk: they load and
+    pass check_krylov."""
+    cfg = json.loads((ROOT / "amgbench" / "configs" / config).read_text())
+    kr = KrylovParams(**cfg["krylov"])
+    assert {"loop_mode", "chunk"} <= set(cfg["krylov"])
+    check_krylov(kr)
+    assert kr.loop_mode == "device"
+
+
+@pytest.mark.parametrize("kind", ["serial", "dist"])
 @pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
-def test_masked_step_past_convergence_changes_nothing(method):
-    """A predicated step whose guard is off (||r||^2 at or below the
-    target, or k at the budget) leaves every state entry bit for bit
-    unchanged, k included; with the guard on it gives the plain step's
-    bits and counts one."""
-    A, dinv, b = _operator(1)
-    chunks = {"cg": tk.pcg_chunk, "bicgstab": tk.bicgstab_chunk,
-              "amg": tk.stationary_chunk}[method]
-    mv, pc = (lambda v: A @ v), (lambda r: dinv * r)
-    target = torch.zeros((), dtype=torch.float64)
-    budget = torch.full((), 50, dtype=torch.int32)
-    init, plain = chunks(mv, pc, 1, dot)
-    _, guarded = chunks(mv, pc, 1, dot, guard=(target, budget))
-    if method == "bicgstab":
-        plain, guarded = (lambda st, f=plain: f(b, st)), \
-            (lambda st, f=guarded: f(b, st))
-    i_rr, i_k, _ = tk.READS[method]
-    st = plain(plain(init(b)))
-    for a, c in zip(guarded(st), plain(st)):
-        torch.testing.assert_close(a, c, rtol=0, atol=0)
-    target.fill_(float(st[i_rr]))                   # converged: off
-    for a, c in zip(guarded(st), st):
-        torch.testing.assert_close(a, c, rtol=0, atol=0)
-    target.zero_()
-    budget.fill_(int(st[i_k]))                      # budget spent: off
-    assert int(guarded(st)[i_k]) == int(st[i_k]) == 2
-
-
-@pytest.mark.parametrize("main", [1, 4, 12])
-def test_pick_chunk_is_the_jax_schedulers(main):
-    """_pick_chunk and the tail ladder are the JAX package's, and
-    chunk_sizes lists every size the scheduler can pick (the graphs
-    warm() captures)."""
-    assert tsolver._TAILS == jsolver._TAILS
-    picked = set()
-    for need in range(1, 41):
-        k = tsolver._pick_chunk(need, main)
-        assert k == jsolver._pick_chunk(need, main), need
-        picked.add(k)
-    picked.add(min(tsolver._TAILS[-1], main))       # the cold probe
-    assert set(tsolver.chunk_sizes(main)) == picked
+def test_second_solve_reuses_the_loop(method, kind):
+    """A second solve on the same solver runs on the same loop (its
+    static buffers and graphs) and gives the first solve's x bits,
+    counts and history, also after a solve of another right-hand side on
+    a shallow copy, which shares the loop."""
+    import copy
+    A = poisson2d(24)
+    p, kr = AMGParams(coarse_size=40), KrylovParams(method=method,
+                                                    maxiter=200)
+    s = AMGSolver(A, p, kr, device="cpu") if kind == "serial" \
+        else DistAMGSolver(A, params=p, krylov=kr, device="cpu")
+    rng = np.random.default_rng(9)
+    b, other = rng.standard_normal((2, A.shape[0]))
+    first = s.solve(b)
+    loop = s._loop()
+    assert copy.copy(s).solve(other).converged
+    second = s.solve(b)
+    assert s._loop() is loop and len(s._loops) == 1
+    assert first.converged and _relres(A, b, first) <= 1e-8
+    assert (second.iterations, second.refine_passes, second.history) == \
+        (first.iterations, first.refine_passes, first.history)
+    np.testing.assert_array_equal(second.x, first.x)
 
 
 def test_counted_on_the_cpu_and_eager_chunks():
     """On the CPU a ChunkGraph runs its function eagerly and records no
     replay launches; counted() sees the plain versions' zero launches
-    over a solve in either mode; unknown placements raise."""
+    over a solve; the JAX package's host placement raises."""
     A = poisson2d(16)
     b = np.random.default_rng(0).standard_normal(A.shape[0])
-    for mode in ("host", "device"):
-        s = AMGSolver(A, AMGParams(coarse_size=40),
-                      KrylovParams(loop_mode=mode), device="cpu")
-        res, launches = counted(lambda: s.solve(b))
-        assert res.converged and not any(launches.values())
-        assert set(launches) >= {"dia_spmv", "ell_spmv", "block_ell_spmv"}
-        graphs = [g for lp in s._loops.values() for g in lp.all_graphs()]
-        assert graphs and all(g.graph is None and g.per_replay == {}
-                              for g in graphs)
-        assert s.graph_seconds() == (0.0, 0.0)
+    s = AMGSolver(A, AMGParams(coarse_size=40), KrylovParams(),
+                  device="cpu")
+    res, launches = counted(lambda: s.solve(b))
+    assert res.converged and not any(launches.values())
+    assert set(launches) >= {"dia_spmv", "ell_spmv", "block_ell_spmv"}
+    graphs = [g for lp in s._loops.values() for g in lp.all_graphs()]
+    assert graphs and all(g.graph is None and g.per_replay == {}
+                          for g in graphs)
+    assert s.graph_seconds() == (0.0, 0.0)
     buf = (torch.zeros(3),)
     g = ChunkGraph(lambda bufs: (bufs[0] + 1,), buf, capture=False)
     g.run()
     g.run()
     assert buf[0].tolist() == [2.0, 2.0, 2.0]
-    for bad in ({"loop_mode": "while"}, {"chunk": 0}):
-        with pytest.raises(ValueError):
-            AMGSolver(A, AMGParams(coarse_size=40), KrylovParams(**bad),
-                      device="cpu")
+    with pytest.raises(ValueError):
+        AMGSolver(A, AMGParams(coarse_size=40),
+                  KrylovParams(loop_mode="host"), device="cpu")

@@ -1,20 +1,17 @@
-"""The device loop mode as the JAX package runs it (each refinement pass
-one loop while ``krylov.loop_continue`` holds: a CUDA graph WHILE node on
-the card, a Python loop here) and the host mode's fused pass start and
-finish, on the CPU.
+"""The Krylov loop as the JAX package's device mode runs it (each
+refinement pass one loop while ``krylov.loop_continue`` holds: a CUDA
+graph WHILE node on the card, a Python loop here), on the CPU.
 
-* one eager device-mode pass against the JAX package's
-  ``_inner_solve_dev`` (its ``lax.while_loop``) on the same fp32
-  right-hand side, and the whole device-mode solve against the JAX
-  package's, for CG, BiCGStab and the stationary iteration on small
-  Poisson and elasticity problems: the same iterations and passes;
-* ``loop_continue`` on a met or zero right-hand side, the budget,
-  non-finite ||r||^2 and a breakdown, in agreement with ``masked``, and
+* one eager pass against the JAX package's ``_inner_solve_dev`` (its
+  ``lax.while_loop``) on the same fp32 right-hand side, and the whole
+  solve against the JAX package's device mode, for CG, BiCGStab and the
+  stationary iteration on small Poisson and elasticity problems: the
+  same iterations and passes;
+* ``loop_continue`` and the guard's plain version on a met or zero
+  right-hand side, the budget, non-finite ||r||^2 and a breakdown, and
   what a pass runs in each case;
-* the host mode (its start replayed back to back with its first chunk,
-  its finish writing the true ||r||^2) against the host mode as it ran
-  with every piece launched on its own: the same counts, history and x
-  bits.
+* the in-place steps against the JAX package's steps, and the solve
+  through ``ops.fp64.finish64`` against the finish composed as before.
 """
 import copy
 import dataclasses
@@ -23,17 +20,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from functools import partial
 
 from sparsh_amg_tpu import params as jparams
 from sparsh_amg_tpu.models.elasticity import (elasticity2d,
                                               elasticity2d_nullspace)
 from sparsh_amg_tpu.models.poisson import poisson2d
+from sparsh_amg_tpu.ops.blas import dot as jdot
+from sparsh_amg_tpu.solve import krylov as jk
 from sparsh_amg_tpu.solve.solver import AMGSolver as JaxSolver
 from sparsh_amg_tpu_torch import AMGSolver
 from sparsh_amg_tpu_torch.ops.blas import dot
 from sparsh_amg_tpu_torch.ops.fp64 import residual64
-from sparsh_amg_tpu_torch.ops.formats import spmv
 from sparsh_amg_tpu_torch.params import AMGParams, KrylovParams
 from sparsh_amg_tpu_torch.solve import krylov as tk
 from sparsh_amg_tpu_torch.solve import solver as tsolver
@@ -62,7 +59,7 @@ def _problem(name):
 
 def _solvers(name, method):
     A, ns, p = _problem(name)
-    kr = KrylovParams(method=method, loop_mode="device", maxiter=300)
+    kr = KrylovParams(method=method, maxiter=300)
     port = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
     jax_ = JaxSolver(A, jparams.AMGParams(**dataclasses.asdict(p)),
                      jparams.KrylovParams(**dataclasses.asdict(kr)),
@@ -89,14 +86,14 @@ def test_eager_pass_is_the_jax_while_loop(name, method):
     n = A.shape[0]
     loop = port._loop()
     loop.b64.copy_(torch.from_numpy(_padded(b, port.n_pad, np.float64)))
-    iters, rnsq, steps, reads = port._pass(loop, True, 1e-6, 300)
+    iters, rnsq, reads = port._pass(loop, True, 1e-6, 300)
     x = loop.x64.numpy()[:n]
     xj, itj, _ = jax_._inner_solve_dev(
         jax_.device.levels, jax_.A_df.A_hi,
         jnp.asarray(_padded(b, jax_.n_pad, np.float32)), 1e-6, 300)
     xj = np.asarray(xj, np.float64)[:n]
     # eagerly the guard is read after every step, and prog once
-    assert iters == int(itj) > 0 and steps == iters and reads == iters + 2
+    assert iters == int(itj) > 0 and reads == iters + 2
     assert np.linalg.norm(x - xj) <= 1e-4 * np.linalg.norm(xj)
     np.testing.assert_allclose(
         rnsq, np.linalg.norm(b - A @ x) ** 2, rtol=1e-6)
@@ -106,40 +103,51 @@ def test_eager_pass_is_the_jax_while_loop(name, method):
     assert (got.iterations, got.refine_passes) == \
         (want.iterations, want.refine_passes), (got.history, want.history)
     assert np.linalg.norm(got.x - want.x) <= 1e-6 * np.linalg.norm(want.x)
-    assert got.masked_steps == 0
     assert got.host_reads == got.iterations + 2 * got.refine_passes
 
 
-def _state(method, case):
-    """A Krylov state of `method` after two steps on a small operator, and
-    its guard (target, budget) for `case`."""
+def _operator():
+    """A diagonally dominant nonsymmetric matrix, its inverse diagonal and
+    a right-hand side, in fp32 numpy arrays."""
     rng = np.random.default_rng(1)
     n = 40
     A = rng.standard_normal((n, n)) * 0.3 + np.diag(np.full(n, 4.0))
-    At = torch.from_numpy(A.astype(np.float32))
-    dinv = torch.from_numpy((1.0 / np.diag(A)).astype(np.float32))
-    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    chunks = {"cg": tk.pcg_chunk, "bicgstab": tk.bicgstab_chunk,
-              "amg": tk.stationary_chunk}[method]
-    mv, pc = (lambda v: At @ v), (lambda r: dinv * r)
-    init, step = chunks(mv, pc, 1, dot)
-    if method == "bicgstab":
-        step = partial(step, b)
-    st = list(step(step(init(b))))
+    return (A.astype(np.float32), (1.0 / np.diag(A)).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+def _init(method, mv, pc, b, init_dot=dot):
+    """A method's initial state, each entry a buffer of its own (as the
+    loop holds it)."""
+    st = {"cg": lambda: tk.pcg_init(mv, pc, b, init_dot),
+          "bicgstab": lambda: tk.bicgstab_init(mv, b, init_dot),
+          "amg": lambda: tk.stationary_init(mv, pc, b, init_dot)}[method]()
+    return [t.clone() for t in st]
+
+
+def _state(method, case):
+    """A Krylov state of `method` after two in-place steps on a small
+    operator, and its guard (target, budget) for `case`."""
+    A, dinv, b = map(torch.from_numpy, _operator())
+    mv, pc = (lambda v: A @ v), (lambda r: dinv * r)
+    step = tk.step_inplace(mv, pc, method, dot, b)
+    st = _init(method, mv, pc, b)
+    step(st)
+    step(st)
     i_rr, i_k, i_brk = tk.READS[method]
     target = torch.zeros((), dtype=torch.float64)
     budget = torch.full((), 50.0, dtype=torch.float64)
     if case == "met":
         target.fill_(float(st[i_rr]))
     elif case == "zero_rhs":
-        st = list(init(torch.zeros_like(b)))
+        st = _init(method, mv, pc, torch.zeros_like(b))
     elif case == "budget":
         budget.fill_(int(st[i_k]))
     elif case in ("inf", "nan"):
         st[i_rr] = torch.tensor(float(case), dtype=torch.float32)
     elif case == "breakdown":
         st[i_brk] = torch.ones((), dtype=torch.bool)
-    return tuple(st), (target, budget), step
+    return tuple(st), (target, budget)
 
 
 # every method and case (a breakdown only BiCGStab reports)
@@ -151,18 +159,12 @@ GUARD_CASES = [(m, c) for m in ("cg", "bicgstab", "amg")
 @pytest.mark.parametrize("method,case", GUARD_CASES)
 def test_loop_continue_cases_agree_with_masked(method, case):
     """loop_continue steps only while ||r||^2 is finite and above target, k
-    below the budget and no breakdown is flagged; where it says stop, a
-    masked step leaves every state bit as it was, and where it says go,
-    the masked step is the plain step.  The guard's plain version (the
-    CPU's loop_guard) decides the same and records (||r||^2, k,
-    breakdown)."""
-    st, guard, step = _state(method, case)
+    below the budget and no breakdown is flagged.  The guard's plain
+    version (the CPU's loop_guard) decides the same and records (||r||^2,
+    k, breakdown)."""
+    st, guard = _state(method, case)
     go = tk.loop_continue(method, st, guard)
     assert go == (case == "active")
-    new = tk.masked(step, method, guard)(st)
-    want = step(st) if go else st
-    for a, c in zip(new, want):
-        torch.testing.assert_close(a, c, rtol=0, atol=0, equal_nan=True)
     prog = torch.zeros(5, dtype=torch.float64)
     assert bool(loop_guard(method, st, guard, prog)) == go
     i_rr, i_k, i_brk = tk.READS[method]
@@ -172,29 +174,48 @@ def test_loop_continue_cases_agree_with_masked(method, case):
                                equal_nan=True)
 
 
+def _jax_step(method, mv, pc, rhat):
+    """The JAX package's functional step of `method`."""
+    if method == "bicgstab":
+        return lambda st: jk.bicgstab_step(mv, pc, jdot, rhat, st)
+    step = {"cg": jk.pcg_step, "amg": jk.stationary_step}[method]
+    return lambda st: step(mv, pc, jdot, st)
+
+
 @pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
 def test_inplace_step_is_the_plain_step(method):
     """The loop body's step (krylov.step_inplace, the state's buffers
-    updated in place) gives the plain step's bits in every state entry
-    over five steps (PCG's z, which the next step recomputes, is not
-    written), and a breakdown freezes x and r as the plain step does."""
-    st, _, plain = _state(method, "active")
-    rng = np.random.default_rng(1)
-    n = 40
-    A = rng.standard_normal((n, n)) * 0.3 + np.diag(np.full(n, 4.0))
-    At = torch.from_numpy(A.astype(np.float32))
-    dinv = torch.from_numpy((1.0 / np.diag(A)).astype(np.float32))
-    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    step = tk.step_inplace(lambda v: At @ v, lambda r: dinv * r, method, dot,
-                           b)
-    bufs = tuple(t.clone() for t in st)
-    want = st
+    updated in place) takes the JAX package's functional step in every
+    state entry over five steps from the same initial state, at rtol
+    1e-5 (fp32 sums in another order; PCG's z, which the next step
+    recomputes, is not written), with the same count; a breakdown
+    freezes x and r."""
+    A, dinv, b = _operator()
+    At, dt, bt = map(torch.from_numpy, (A, dinv, b))
+    Aj, dj, bj = map(jnp.asarray, (A, dinv, b))
+    tmv, tpc = (lambda v: At @ v), (lambda r: dt * r)
+    jmv, jpc = (lambda v: Aj @ v), (lambda r: dj * r)
+    step = tk.step_inplace(tmv, tpc, method, dot, bt)
+    plain = _jax_step(method, jmv, jpc, bj)
+    bufs = _init(method, tmv, tpc, bt)
+    want = {"cg": lambda: jk.pcg_init(jmv, jpc, bj, jdot),
+            "bicgstab": lambda: jk.bicgstab_init(jmv, bj, jdot),
+            "amg": lambda: jk.stationary_init(jmv, jpc, bj, jdot)}[method]()
     for _ in range(5):
         want = plain(want)
         step(bufs)
         for i, (a, c) in enumerate(zip(bufs, want)):
-            if not (method == "cg" and i == 2):
-                torch.testing.assert_close(a, c, rtol=0, atol=0)
+            if method == "cg" and i == 2:
+                continue
+            c = np.asarray(c)
+            if a.dtype in (torch.bool, torch.int32):
+                assert a.item() == c.item(), i
+            else:
+                np.testing.assert_allclose(
+                    a.numpy().astype(np.float64), c.astype(np.float64),
+                    rtol=1e-5, atol=1e-5 * max(np.abs(c).max(), 1e-30),
+                    err_msg=str(i))
+    assert int(bufs[tk.READS[method][1]]) == 5
     if method == "bicgstab":
         bufs[9].fill_(True)
         x, r = bufs[0].clone(), bufs[1].clone()
@@ -206,8 +227,7 @@ def test_inplace_step_is_the_plain_step(method):
 def test_pass_runs_what_loop_continue_allows(case):
     """A pass on a zero right-hand side, on one that already meets its
     tolerance or that holds an infinity runs no step (lax.while_loop
-    runs none; the host mode counts none on a zero one); a budget of 3
-    stops it after 3."""
+    runs none); a budget of 3 stops it after 3."""
     A, port, _ = _solvers("poisson2d", "cg")
     b = np.random.default_rng(3).standard_normal(A.shape[0])
     if case == "zero_rhs":
@@ -218,134 +238,36 @@ def test_pass_runs_what_loop_continue_allows(case):
         3 if case == "budget" else 50
     loop = port._loop()
     loop.b64.copy_(torch.from_numpy(_padded(b, port.n_pad, np.float64)))
-    iters, _, steps, reads = port._pass(loop, True, tol, budget)
-    assert iters == steps == (3 if case == "budget" else 0)
+    iters, _, reads = port._pass(loop, True, tol, budget)
+    assert iters == (3 if case == "budget" else 0)
     assert reads == iters + 2
     if case != "budget" and case != "inf":
         assert torch.count_nonzero(loop.x64).item() == 0
-    if case == "zero_rhs":              # the host mode counts none either
-        host = copy.copy(port)
-        host.krylov = dataclasses.replace(port.krylov, loop_mode="host")
-        assert host._pass(loop, True, tol, budget)[0] == 0
 
 
-def _host_solve_unfused(s, b, tol=None, maxiter=None):
-    """The host loop mode with each piece launched on its own, as the
-    solver ran it before its start and finish were fused: the pass's
-    right-hand side cast eagerly, the Krylov init, the chunks sized by the
-    same scheduler, then x += d, the fp64 residual and its norm, read on
-    the host.  Returns (x, iterations, passes, history)."""
-    kr = s.krylov
-    tol = kr.tol if tol is None else tol
-    maxiter = kr.maxiter if maxiter is None else maxiter
-    method = kr.method
-    chunks = {"cg": tk.pcg_chunk, "bicgstab": tk.bicgstab_chunk,
-              "amg": tk.stationary_chunk}[method]
-    mv = partial(spmv, s._krylov_op)
-    pc = partial(s._cycle, s.device.levels)
-    i_rr, i_k, i_brk = tk.READS[method]
-    rhs = s.prepare_rhs(b)
-    b64, bnorm = rhs.b, rhs.bnorm
-
-    def inner(r, itol, budget, first):
-        b32 = torch.zeros(s.n_pad, dtype=torch.float32)
-        b32.copy_(r)
-        init, _ = chunks(mv, pc, 1, s._dot)
-        state = init(b32)
-        rr0 = float(state[i_rr])
-        k = s._first_chunk(itol, first)
-        while True:
-            _, chunk = chunks(mv, pc, k, s._dot)
-            state = chunk(b32, state) if method == "bicgstab" \
-                else chunk(state)
-            rr, iters = float(state[i_rr]), int(state[i_k])
-            broken = i_brk is not None and bool(state[i_brk])
-            if rr0 == 0.0:
-                return state[0], 0
-            target = (itol * itol) * rr0
-            if iters > 0 and 0.0 < rr < rr0:
-                s._rho2_est = float((rr / rr0) ** (1.0 / iters))
-            if (rr <= target or not np.isfinite(rr) or iters >= budget
-                    or broken):
-                return state[0], iters
-            rho2 = s._rho2_est
-            if rho2 is not None and 0.0 < rho2 < 1.0 and target > 0.0:
-                need = int(np.ceil(np.log(target / rr) / np.log(rho2)))
-                k = tsolver._pick_chunk(max(need, 1), kr.chunk)
-            elif iters == 0:
-                k = min(tsolver._TAILS[-1], kr.chunk)
-            else:
-                k = kr.chunk
-
-    x = torch.zeros_like(b64)
-    r = b64
-    history, total, passes, relres = [], 0, 0, 1.0
-    for _ in range(kr.max_refine):
-        budget = maxiter - total
-        if budget <= 0:
-            break
-        itol = s._pass_tol(tol, relres)
-        d, iters = inner(r, itol, budget, passes == 0)
-        x += d
-        r = residual64(s.A64, b64, x)
-        rnsq = s._dot(r, r).item()
-        passes += 1
-        total += iters
-        prev, relres = relres, float(np.sqrt(max(rnsq, 0.0))) / bnorm
-        s._note_pass_slack(prev, relres, itol, budget_limited=iters >= budget)
-        history.append((iters, relres))
-        if relres <= tol:
-            break
-    return s._unperm(x[: s.n].numpy()), total, passes, history
-
-
-@pytest.mark.parametrize("chunk", [4, 12])
-@pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
-def test_fused_host_mode_is_the_unfused_one(method, chunk):
-    """The host mode with its start and finish as whole pieces (the
-    start replayed back to back with the first chunk, the finish's norm
-    read from prog) gives the unfused host mode's counts, history and x
-    bits, on a cold solver and again on the same solver warm."""
-    A = poisson2d(32)
-    b = np.random.default_rng(5).standard_normal(A.shape[0])
-    kr = KrylovParams(method=method, loop_mode="host", chunk=chunk,
-                      maxiter=200)
-    s = AMGSolver(A, AMGParams(coarse_size=40), kr, device="cpu")
-    ref = copy.copy(s)
-    ref._reset_loop_state()
-    for _ in range(2):
-        got = s.solve(b)
-        x, iters, passes, history = _host_solve_unfused(ref, b)
-        assert (got.iterations, got.refine_passes, got.history) == \
-            (iters, passes, history)
-        np.testing.assert_array_equal(got.x, x)
-        assert got.converged and got.masked_steps == 0
-        assert got.host_reads >= 2 * got.refine_passes
-
-
-def _parent_finish_fn(loop, bufs):
+def _parent_finish(A64, x64, d, b64, b, rr, dot):
     """The loop's finish as it was composed before the finish had a
     kernel: x64 + x, the fp64 residual and its norm, copied back."""
-    x = loop.x64 + loop.state[0]
-    r = residual64(loop._A64, loop.b64, x)
-    return x, r, loop._dot(r, r).reshape(1)
+    x = x64 + d
+    r = residual64(A64, b64, x)
+    return x, r, dot(r, r).reshape(1)
 
 
 @pytest.mark.parametrize("method", ["cg", "bicgstab", "amg"])
 @pytest.mark.parametrize("name", ["poisson2d", "elasticity2d"])
 def test_device_mode_solve_keeps_the_parent_finish(name, method,
                                                    monkeypatch):
-    """The eager device-mode solve through ops.fp64.finish64 takes the
+    """The eager solve through ops.fp64.finish64 takes the
     iterations, passes and history of the same solve with the loop's
     finish composed as before, and gives x with the same bits."""
     A, ns, p = _problem(name)
-    kr = KrylovParams(method=method, loop_mode="device", maxiter=300)
+    kr = KrylovParams(method=method, maxiter=300)
     s = AMGSolver(A, p, kr, nullspace=ns, device="cpu")
     ref = copy.copy(s)
     ref._reset_loop_state()
     b = np.random.default_rng(7).standard_normal(A.shape[0])
     got = s.solve(b)
-    monkeypatch.setattr(tsolver._Loop, "_finish_fn", _parent_finish_fn)
+    monkeypatch.setattr(tsolver, "finish64", _parent_finish)
     want = ref.solve(b)
     assert got.converged and want.converged
     assert (got.iterations, got.refine_passes, got.history) == \

@@ -81,10 +81,11 @@ def coarse_case():
 
 
 SOLVE_GROUPS = {"cycles": ("poisson3d_chebyshev", "W", "F", "bicgstab",
-                           "loop_host", "loop_device"),
+                           "loop_device"),
                 "levels": ("gs2", "bf16", "replicated")}
 
 
+# the JAX package's side runs in its device loop mode, the port's one
 DEV = {"loop_mode": "device"}
 
 
@@ -92,8 +93,7 @@ def solve_cases(group: str | None = None) -> dict:
     """name -> (A, params keywords, Krylov keywords): the cases of the
     JAX package's tests/test_parallel.py (dense_size 256 where the fine
     level must stay sparse: DistDia levels under Chebyshev, the gs2
-    triangles, bf16 bands), each in the device loop mode but for
-    loop_host (test_parallel.py:170-180 runs both); those of
+    triangles, bf16 bands), each in the device loop mode; those of
     SOLVE_GROUPS[group] with a group."""
     from sparsh_amg_tpu_torch.models import (convection2d, poisson2d,
                                              poisson3d)
@@ -104,8 +104,6 @@ def solve_cases(group: str | None = None) -> dict:
         "F": (poisson2d(24), dict(coarse_size=40, cycle="F"), DEV),
         "bicgstab": (convection2d(24), dict(coarse_size=40),
                      dict(method="bicgstab", maxiter=200, **DEV)),
-        "loop_host": (poisson2d(24), dict(coarse_size=40),
-                      dict(loop_mode="host")),
         "loop_device": (poisson2d(24), dict(coarse_size=40), DEV),
         "gs2": (poisson2d(24), dict(coarse_size=40, smoother="gs2",
                                     dense_size=256), DEV),
