@@ -306,17 +306,23 @@ def dia_library(bands, offsets, n, x):
                      A.values(), (n_pad, n_pad), x)
 
 
-# vectors each DIA tail reads or writes once (inputs, then outputs)
+# vectors each DIA tail reads or writes once (inputs, then outputs);
+# "zero": a Chebyshev tail's zero start (x not read; the start has no
+# product, so it reads no band either)
 DIA_VECTORS = {"dia_spmv": 2, "dia_residual": 3, "dia_dinv_residual": 4,
-               "dia_jacobi_sweep": 4, "dia_cheb_step": 7}
+               "dia_jacobi_sweep": 4, "dia_cheb_step": 7,
+               "dia_cheb_start": 5, "dia_cheb_last": 5,
+               "dia_cheb_start zero": 4, "dia_cheb_step zero": 5,
+               "dia_cheb_last zero": 4}
 
 
 def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
               dinv=None, timed=None):
-    """All five tails of the DIA kernel on one band table of n_rows real
-    rows, each against its plain version, two launches giving the same
-    bits.  Timed with L2 flushed between launches when the table fits in
-    L2; `timed` limits the timing to the tails named there.  `dinv`: the
+    """Every tail of the DIA kernel on one band table of n_rows real rows
+    (the Chebyshev start, step and last also from a zero start), each
+    against its plain version, two launches giving the same bits.  Timed
+    with L2 flushed between launches when the table fits in L2; `timed`
+    limits the timing to the tails named there.  `dinv`: the
     level's own inverse diagonal, else a random one."""
     import torch
     from sparsh_amg_tpu_torch.ops import dia_spmv as K
@@ -341,9 +347,6 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
          P(K.SPMV, bands, offsets, x)),
         ("dia_residual", lambda: K.dia_residual(bands, x, b, offsets),
          P(K.RESIDUAL, bands, offsets, x, b=b)),
-        ("dia_dinv_residual",
-         lambda: K.dia_dinv_residual(bands, x, b, dinv, offsets),
-         P(K.DINV_RESIDUAL, bands, offsets, x, b=b, dinv=dinv)),
         ("dia_jacobi_sweep",
          lambda: K.dia_jacobi_sweep(bands, x, b, dinv, 0.7, offsets),
          P(K.JACOBI, bands, offsets, x, b=b, dinv=dinv, x=x, s0=0.7)),
@@ -351,21 +354,54 @@ def dia_cases(tag, bands, offsets, rng, results, time_it, n_rows=None,
          lambda: K.dia_cheb_step(bands, x, d, r, dinv, 0.3, 0.9, offsets),
          P(K.CHEB, bands, offsets, d, b=r, dinv=dinv, x=x, s0=0.3, s1=0.9)),
     ]
+    if hasattr(K, "dia_dinv_residual"):     # an older checkout's
+        cases.insert(2, (
+            "dia_dinv_residual",
+            lambda: K.dia_dinv_residual(bands, x, b, dinv, offsets),
+            P(K.DINV_RESIDUAL, bands, offsets, x, b=b, dinv=dinv)))
+    if hasattr(K, "dia_cheb_start"):        # an older checkout has none
+        cases += [
+            ("dia_cheb_start",
+             lambda: K.dia_cheb_start(bands, x, b, dinv, 1.7, offsets),
+             P(K.CHEB_START, bands, offsets, x, b=b, dinv=dinv, s0=1.7)),
+            ("dia_cheb_start zero",
+             lambda: K.dia_cheb_start(bands, None, b, dinv, 1.7, offsets),
+             P(K.CHEB_START, bands, offsets, None, b=b, dinv=dinv, s0=1.7)),
+            ("dia_cheb_step zero",
+             lambda: K.dia_cheb_step(bands, None, d, r, dinv, 0.3, 0.9,
+                                     offsets),
+             P(K.CHEB, bands, offsets, d, b=r, dinv=dinv, s0=0.3, s1=0.9)),
+            ("dia_cheb_last",
+             lambda: K.dia_cheb_last(bands, x, d, r, dinv, 0.3, 0.9,
+                                     offsets),
+             P(K.CHEB_LAST, bands, offsets, d, b=r, dinv=dinv, x=x, s0=0.3,
+               s1=0.9)),
+            ("dia_cheb_last zero",
+             lambda: K.dia_cheb_last(bands, None, d, r, dinv, 0.3, 0.9,
+                                     offsets),
+             P(K.CHEB_LAST, bands, offsets, d, b=r, dinv=dinv, s0=0.3,
+               s1=0.9)),
+        ]
     dt = "bf16" if bands.dtype == torch.bfloat16 else "fp32"
     if time_it:
         # one SpMV's bytes (x and y), then the tail's other vectors
         ob = op_bytes(DiaMatrix(bands, tuple(offsets), n_rows, n_rows))
         nz = int(torch.count_nonzero(bands))
     for name, kern, plain in cases:
+        wrapper = name.split()[0]
         extra_vec = DIA_VECTORS[name] - 2
         work = (ob.real + 4 * n_rows * extra_vec,
                 ob.padded + 4 * n * extra_vec, 2 * nz) if time_it else None
-        t = time_it and (timed is None or name in timed)
+        if time_it and name == "dia_cheb_start zero":   # no product
+            work = (4 * n_rows * DIA_VECTORS[name],
+                    4 * n * DIA_VECTORS[name], 0)
+        t = time_it and (timed is None or wrapper in timed)
         lib = (dia_library(bands, offsets, n_rows, x)
                if t and name == "dia_spmv" else None)
-        compare(f"{name} {tag} {dt} n_pad={n}", kern, plain, results,
+        label = name.replace(" zero", " zero-start")
+        compare(f"{label} {tag} {dt} n_pad={n}", kern, plain, results,
                 t, work=work, library=lib, same_bits=True,
-                flush=flush if t else None, extra=inst)
+                flush=flush if t else None, extra=inst, graph=t)
 
 
 def finish_case(tag, A64, rng, results, time_it, n_rows=None):
@@ -939,8 +975,9 @@ CONFIG_LAUNCHES = {
                                                "ell_spmv"),
     "convection3d_96_pmis_extpi_V_bicgstab": ("dia_spmv", "dia_residual",
                                               "ell_spmv"),
-    "jump2d_1024_random_1e4_V_cg": ("dia_cheb_step", "dia_dinv_residual",
-                                    "dia_residual", "dia_spmv", "ell_spmv"),
+    "jump2d_1024_random_1e4_V_cg": ("dia_cheb_start", "dia_cheb_step",
+                                    "dia_cheb_last", "dia_residual",
+                                    "dia_spmv", "ell_spmv"),
     "delaunay_1024sq_rcm_l1jac_V_cg": ("ell_spmv",),
 }
 CONFIG_CALLS = {
@@ -1103,8 +1140,8 @@ def bench_phase(gpu_name):
     assert out["relres_host_fp64"] <= 1e-8, out
     assert out["device_name"] == gpu_name, (out["device_name"], gpu_name)
     bench_loop_check("bench_torch.py", out)
-    for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
-                 "dia_cheb_step", "ell_spmv"):
+    for name in ("dia_spmv", "dia_residual", "dia_cheb_start",
+                 "dia_cheb_step", "dia_cheb_last", "ell_spmv"):
         assert out["launches"][name] > 0, \
             f"{name} not launched during the bench's solves"
     rc, rows = child_json("kernel_bench_torch.py")
@@ -1280,9 +1317,6 @@ def dist_boundary_cases(rng, results, dev):
             "dia_residual": (
                 lambda: K.dia_residual(W.bands, v, b, W.offsets),
                 P(K.RESIDUAL, W.bands, W.offsets, v, b=b)),
-            "dia_dinv_residual": (
-                lambda: K.dia_dinv_residual(W.bands, v, b, dinv, W.offsets),
-                P(K.DINV_RESIDUAL, W.bands, W.offsets, v, b=b, dinv=dinv)),
             "dia_jacobi_sweep": (
                 lambda: K.dia_jacobi_sweep(W.bands, v, b, dinv, 0.7,
                                            W.offsets),
@@ -1292,6 +1326,26 @@ def dist_boundary_cases(rng, results, dev):
                 lambda: K.dia_cheb_step(W.bands, x, v, b, dinv, 0.3, 0.9,
                                         W.offsets),
                 P(K.CHEB, W.bands, W.offsets, v, b=b, dinv=dinv, x=x,
+                  s0=0.3, s1=0.9)),
+            "dia_cheb_start": (
+                lambda: K.dia_cheb_start(W.bands, v, b, dinv, 1.7,
+                                         W.offsets),
+                P(K.CHEB_START, W.bands, W.offsets, v, b=b, dinv=dinv,
+                  s0=1.7)),
+            "dia_cheb_step zero": (
+                lambda: K.dia_cheb_step(W.bands, None, v, b, dinv, 0.3, 0.9,
+                                        W.offsets),
+                P(K.CHEB, W.bands, W.offsets, v, b=b, dinv=dinv, s0=0.3,
+                  s1=0.9)),
+            "dia_cheb_last": (
+                lambda: K.dia_cheb_last(W.bands, x, v, b, dinv, 0.3, 0.9,
+                                        W.offsets),
+                P(K.CHEB_LAST, W.bands, W.offsets, v, b=b, dinv=dinv, x=x,
+                  s0=0.3, s1=0.9)),
+            "dia_cheb_last zero": (
+                lambda: K.dia_cheb_last(W.bands, None, v, b, dinv, 0.3, 0.9,
+                                        W.offsets),
+                P(K.CHEB_LAST, W.bands, W.offsets, v, b=b, dinv=dinv,
                   s0=0.3, s1=0.9)),
         }
         for rank in (0, 1, DIST_RANKS - 1):
@@ -1305,10 +1359,16 @@ def dist_boundary_cases(rng, results, dev):
             block = {
                 "dia_spmv": lambda: op.spmv(vl),
                 "dia_residual": lambda: op.residual(vl, bl),
-                "dia_dinv_residual": lambda: op.dinv_residual(vl, bl, dl),
                 "dia_jacobi_sweep": lambda: op.jacobi_sweep(vl, bl, dl, 0.7),
                 "dia_cheb_step":
                     lambda: op.cheb_step(xl, vl, bl, dl, 0.3, 0.9),
+                "dia_cheb_start": lambda: op.cheb_start(vl, bl, dl, 1.7),
+                "dia_cheb_step zero":
+                    lambda: op.cheb_step(None, vl, bl, dl, 0.3, 0.9),
+                "dia_cheb_last":
+                    lambda: op.cheb_last(xl, vl, bl, dl, 0.3, 0.9),
+                "dia_cheb_last zero":
+                    lambda: op.cheb_last(None, vl, bl, dl, 0.3, 0.9),
             }
             ends = K.boundary_rows(op.offsets, op.n_loc, rank > 0,
                                    rank < DIST_RANKS - 1)
@@ -1318,7 +1378,7 @@ def dist_boundary_cases(rng, results, dev):
                 want = serial()
                 torch.cuda.synchronize()
                 launched = {w: c for w, c in launches.items() if c}
-                if launched != {name: 1, "dia_fused_boundary": 1}:
+                if launched != {name.split()[0]: 1, "dia_fused_boundary": 1}:
                     raise AssertionError(f"{name} rank {rank}: launched "
                                          f"{launched}")
                 got = got if isinstance(got, tuple) else (got,)
@@ -1329,7 +1389,7 @@ def dist_boundary_cases(rng, results, dev):
                         f"{DIST_RANKS} poisson3d({DIST_M}) {dt} "
                         f"n_loc={op.n_loc}", product,
                         lambda: tuple(t[rows] for t in (
-                            plain() if name == "dia_cheb_step"
+                            plain() if isinstance(plain(), tuple)
                             else (plain(),))),
                         results, time_it=False, same_bits=True,
                         extra={"serial_same_bits": serial_bits,
@@ -1360,24 +1420,33 @@ def dist_boundary_cases(rng, results, dev):
     real = (bands.element_size() * len(offs) * rows
             + 4 * rows * DIA_VECTORS["dia_cheb_step"] + 4 * 2 * h)
 
-    def kernel():
-        K.dia_fused_boundary(K.CHEB, bands, offs, d, left, right, outs,
-                             True, True, b=r, dinv=dinv, x=x, s0=0.3, s1=0.9)
-        return tuple(outs)
+    for tail, tag, wrapper, n_out in (
+            (K.CHEB, "CHEB", "dia_cheb_step", 3),
+            (K.CHEB_LAST, "CHEB_LAST", "dia_cheb_last", 1)):
+        if tail == K.CHEB_LAST:
+            # CHEB_LAST writes x + d + d' alone: x', r', d' not written
+            real -= 4 * rows * (DIA_VECTORS["dia_cheb_step"]
+                                - DIA_VECTORS[wrapper])
 
-    def plain():
-        K.dia_boundary_plain(K.CHEB, bands, offs, d, left, right,
-                             plain_outs, True, True, b=r, dinv=dinv, x=x,
-                             s0=0.3, s1=0.9)
-        return tuple(plain_outs)
+        def kernel(tail=tail, n_out=n_out):
+            K.dia_fused_boundary(tail, bands, offs, d, left, right,
+                                 outs[:n_out], True, True, b=r, dinv=dinv,
+                                 x=x, s0=0.3, s1=0.9)
+            return tuple(outs[:n_out])
 
-    compare(f"dia_fused_boundary p3d{P304}x{P304_RANKS} rank 1/{P304_RANKS}"
-            f" L0 CHEB bf16 n_loc={n} h={h}", kernel, plain, results, True,
-            work=(real, real, 2 * nz), same_bits=True,
-            flush=l2_flush_buffer(real), graph=True,
-            library=("none: the JAX package corrects the boundary rows "
-                     "with plain slices", {}),
-            extra={"boundary_rows": [lo_rows, hi_row], "h": h})
+        def plain(tail=tail, n_out=n_out):
+            K.dia_boundary_plain(tail, bands, offs, d, left, right,
+                                 plain_outs[:n_out], True, True, b=r,
+                                 dinv=dinv, x=x, s0=0.3, s1=0.9)
+            return tuple(plain_outs[:n_out])
+
+        compare(f"dia_fused_boundary p3d{P304}x{P304_RANKS} rank 1/"
+                f"{P304_RANKS} L0 {tag} bf16 n_loc={n} h={h}", kernel,
+                plain, results, True, work=(real, real, 2 * nz),
+                same_bits=True, flush=l2_flush_buffer(real), graph=True,
+                library=("none: the JAX package corrects the boundary rows "
+                         "with plain slices", {}),
+                extra={"boundary_rows": [lo_rows, hi_row], "h": h})
     del bands, d, r, x, dinv, outs, plain_outs
     torch.cuda.empty_cache()
 
@@ -1603,8 +1672,8 @@ def main(nside=192, dev="cuda"):
     print(json.dumps(stats), flush=True)
     assert x.shape == (A.shape[0],) and np.isfinite(x).all()
     assert res.converged and relres <= 1e-8, (res, relres)
-    for name in ("dia_spmv", "dia_residual", "dia_dinv_residual",
-                 "dia_cheb_step", "ell_spmv"):
+    for name in ("dia_spmv", "dia_residual", "dia_cheb_start",
+                 "dia_cheb_step", "dia_cheb_last", "ell_spmv"):
         assert launches[name] > 0, f"{name} not launched during the solve"
     pass_graph_check("poisson3d", solver, res, launches)
     t0 = time.perf_counter()
@@ -1699,8 +1768,8 @@ def main(nside=192, dev="cuda"):
                 "cases": [{k: c[k] for k in keep if k in c}
                           for c in timed_cases]}
 
-    fused = ("dia_residual", "dia_dinv_residual", "dia_jacobi_sweep",
-             "dia_cheb_step")
+    fused = ("dia_residual", "dia_jacobi_sweep", "dia_cheb_step",
+             "dia_cheb_start", "dia_cheb_last")
     kernels = [
         entry("dia_spmv", "dia_spmv.cu", ("dia_spmv",),
               "dia_spmv L0 Krylov operator fp32",

@@ -9,25 +9,19 @@ matvec) and bf16 bands (the V-cycle), and elasticity2d(512)'s (21 bands,
 525,312 rows, fp32).  They are made from the matrices with scipy (the
 same values as `csr_to_dia`, without the native setup library), so every
 checkout gets the same inputs.  Each table runs chip_smoke.py's
-`dia_cases`: all five tails against their plain versions with the same
+`dia_cases`: every tail against its plain version with the same
 bits twice, device times (median of 25 launches queued behind a device
 sleep, L2 flushed between launches when the table fits in L2), bound_ms
 and a cuSPARSE library_ms for SPMV.  One JSON line per case.
 
-Then a rank's block of the four-card cell's fine level, poisson3d(304)
-over four ranks (rank 1: 7,023,616 rows with both halos, bf16 bands): one
-Chebyshev step as the checkout's smoother runs it on a ``DistDia``
-(``cheb_step``: the local launch and the boundary launch; a checkout
-without it: the SpMV and the plain tail), with the halos already
-received, timed as CUDA graph replays beside the serial CHEB launch on
-the same rows and the boundary launch alone.
+The Chebyshev tails on a rank's block of the four-card cell's fine level
+are timed by kernel_bench_torch.py (its ``_rank`` rows).
 
 --root names the checkout whose ``sparsh_amg_tpu_torch`` is imported
 (default: the one holding this script), so one call can time a parent
 commit unpacked beside the tree, in turns with the tree.
 """
 import argparse
-import dataclasses
 import importlib.util
 import json
 import os
@@ -79,71 +73,6 @@ def poisson3d_bands(m, pad_multiple=2048):
     return bands, offs, n
 
 
-def rank_block_case(smoke, m=304, ranks=4, rank=1):
-    """One Chebyshev step on rank `rank`'s block of poisson3d(m) over
-    `ranks` ranks, as the checkout's smoother runs it on a DistDia, its
-    halos already received (no exchange), held to the plain step within
-    chip_smoke.REL_TOL and timed as graph replays; beside it the serial
-    CHEB launch on the block's rows and the boundary launch alone.  One
-    JSON line."""
-    import torch
-    from sparsh_amg_tpu_torch.ops import counted
-    from sparsh_amg_tpu_torch.ops import dia_spmv as K
-    from sparsh_amg_tpu_torch.parallel.dist import DistDia, RankGroup
-    from sparsh_amg_tpu_torch.utils.timing import graph_ms
-    planes = m // ranks
-    bands, offs = smoke.poisson3d_slab_bands(m, rank * planes,
-                                             (rank + 1) * planes)
-    n, h = bands.shape[1], m * m
-    bands = torch.from_numpy(bands).cuda().to(torch.bfloat16)
-    rng = np.random.default_rng(11)
-    vec = lambda k: torch.from_numpy(
-        rng.standard_normal(k).astype(np.float32)).cuda()
-    x, d, r, left, right = vec(n), vec(n), vec(n), vec(h), vec(h)
-    dinv = torch.full((n,), 1 / 6, device="cuda")
-    a, c = 0.3, 0.9
-
-    @dataclasses.dataclass(frozen=True)
-    class Received(RankGroup):
-        def halo_start(self, v, width):
-            return lambda: (left, right)
-
-    M = DistDia(bands=bands, offsets=offs, h=h, ranks=Received(rank, ranks),
-                n_rows=m ** 3, n_cols=m ** 3)
-    if hasattr(M, "cheb_step"):
-        path = "fused"
-        step = lambda: M.cheb_step(x, d, r, dinv, a, c)
-    else:
-        path = "spmv + plain tail"
-
-        def step():
-            r2 = r - dinv * M.spmv(d)
-            return x + d, r2, a * d + c * r2
-    got, launches = counted(step)
-    r2 = r - dinv * M.spmv_plain(d)
-    want = (x + d, r2, a * d + c * r2)
-    err = max(((g - w).abs().max() / w.abs().max()).item()
-              for g, w in zip(got, want))
-    rec = {"case": f"p3d{m}x{ranks} rank {rank}/{ranks} L0 CHEB bf16, "
-                   f"{n} rows", "path": path,
-           "launches": {k: v for k, v in launches.items() if v},
-           "rel_err_vs_plain": err,
-           "ms": graph_ms(step),
-           "serial_ms": graph_ms(
-               lambda: K.dia_cheb_step(bands, x, d, r, dinv, a, c, offs)),
-           # bands, d, r, dinv, x read; x', r', d' written
-           "bound_ms": (2 * 7 * n + 4 * 7 * n) / 3.35e12 * 1e3}
-    if hasattr(K, "dia_fused_boundary"):
-        outs = [torch.empty(n, device="cuda") for _ in range(3)]
-        rec["boundary_ms"] = graph_ms(lambda: K.dia_fused_boundary(
-            K.CHEB, bands, offs, d, left, right, outs, True, True, b=r,
-            dinv=dinv, x=x, s0=a, s1=c))
-    print(json.dumps(rec), flush=True)
-    if not err <= smoke.REL_TOL:
-        raise AssertionError(f"{rec['case']}: rel err {err:.3e} against "
-                             f"the plain step")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
@@ -176,7 +105,6 @@ def main():
         smoke.dia_cases(tag, bands, offsets, rng, results, time_it=True,
                         n_rows=n_rows)
     del p3d
-    rank_block_case(smoke)
 
 
 if __name__ == "__main__":

@@ -3,17 +3,32 @@
 // Replaces the Pallas TPU kernels of sparsh_amg_tpu/ops/pallas_spmv.py:
 //   * dia_spmv_pallas (_dia_kernel, _dia_kernel_single):  y = A v
 //   * _dia_fused behind dia_residual, dia_dinv_residual, dia_jacobi_sweep
-//     and dia_cheb_step: one A v plus an elementwise tail, in one pass.
+//     and dia_cheb_step: one A v plus an elementwise tail, in one pass
+//     (dia_dinv_residual's r is CHEB_START's first output).
 //
 //   az[i] = sum_d bands[d, i] * v[i + off_d]   (0 where i + off_d is
 //   outside [0, n_pad): the reference pads v with zeros)
 //
 //   SPMV           y0 = az
 //   RESIDUAL       y0 = b - az
-//   DINV_RESIDUAL  y0 = dinv * (b - az)
 //   JACOBI         y0 = x + s0 * dinv * (b - az)          (x == v)
 //   CHEB           (v = d, b = r)  r' = r - dinv * az
 //                  y0 = x + d,  y1 = r',  y2 = s0 * d + s1 * r'
+//   CHEB_START     (v = x)  y0 = r = dinv * (b - az),  y1 = r / s0
+//                  (s0 = theta: the start of a Chebyshev smooth)
+//   CHEB_LAST      (v = d, b = r)  y0 = (x + d) + (s0 * d + s1 * r'): the
+//                  last Chebyshev step and the smooth's closing x + d'
+//
+// The Chebyshev tails have a zero-start case (kZeroStart in the tail
+// code): x is zero and is not read.  CHEB then writes y1 and y2 alone
+// (x' = 0 + d is d itself), CHEB_LAST y0 = d + (s0 * d + s1 * r'), and
+// CHEB_START has no product: r = dinv * b, no band or v read.  So a
+// smooth of degree k >= 2 on a DIA level is k launches: a start, k - 2
+// steps and a last step, with no elementwise kernel between them.  Each
+// tail does the fp32 operations of the composition it replaces, in its
+// order (x + d first, then the sum; r / theta as PyTorch does a CUDA
+// tensor over a scalar: r times the fp32 1 / theta), so its bits are
+// the composition's.
 //
 // What bounds it is bytes: D band streams (2 or 4 B/row each), the
 // multiplied vector, 1-4 extra fp32 vectors and 1-3 fp32 outputs, against
@@ -75,14 +90,21 @@ struct Offsets {
   int v[kMaxBands];
 };
 
-enum Tail : int { SPMV = 0, RESIDUAL = 1, DINV_RESIDUAL = 2, JACOBI = 3,
-                  CHEB = 4 };
+// A tail's code is the index of its wrapper in ops/dia_spmv.py::WRAPPERS
+// (a profiler's kernel name maps back to the wrapper through it)
+enum Tail : int { SPMV = 0, RESIDUAL = 1, JACOBI = 2, CHEB = 3,
+                  CHEB_START = 4, CHEB_LAST = 5 };
+constexpr int kZeroStart = 16;  // or'ed into a Chebyshev tail's code
 
-// fp32 vectors each tail reads besides v: b, dinv, x
-template <int TAIL>
+// what a tail reads besides v (b, dinv, x) and whether it multiplies
+// (Z: the zero-start case)
+template <int TAIL, bool Z>
 struct TailVecs {
-  static constexpr int n = TAIL == SPMV ? 0 : TAIL == RESIDUAL ? 1
-                           : TAIL == DINV_RESIDUAL ? 2 : 3;
+  static constexpr bool b = TAIL != SPMV;
+  static constexpr bool dinv = TAIL != SPMV && TAIL != RESIDUAL;
+  static constexpr bool x = TAIL == JACOBI ||
+                            ((TAIL == CHEB || TAIL == CHEB_LAST) && !Z);
+  static constexpr bool product = TAIL != CHEB_START || !Z;
 };
 
 template <typename BandT>
@@ -240,8 +262,8 @@ __device__ __forceinline__ void add_band(const uint4& band, int off,
 }
 
 // the tail on one thread's R rows; vec[0..2] = b, dinv, x as the tail
-// reads them, dv = v at the thread's own rows (CHEB)
-template <int TAIL, int R>
+// reads them, dv = v at the thread's own rows (CHEB, CHEB_LAST)
+template <int TAIL, bool Z, int R>
 __device__ __forceinline__ void tail_store(const float (&acc)[R],
                                            const float (&vb)[R],
                                            const float (&vd)[R],
@@ -252,24 +274,37 @@ __device__ __forceinline__ void tail_store(const float (&acc)[R],
                                            float* __restrict__ y1,
                                            float* __restrict__ y2) {
   float o0[R];
-  if constexpr (TAIL == CHEB) {
+  if constexpr (TAIL == CHEB || TAIL == CHEB_LAST) {
     float o1[R], o2[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const float r2 = vb[k] - vd[k] * acc[k];
-      o0[k] = vx[k] + dv[k];
+      o0[k] = Z ? dv[k] : vx[k] + dv[k];
       o1[k] = r2;
       o2[k] = s0 * dv[k] + s1 * r2;
     }
+    if constexpr (TAIL == CHEB_LAST) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) o0[k] = __fadd_rn(o0[k], o2[k]);
+    } else {
+      store_vec<R>(y1 + i0, o1);
+      store_vec<R>(y2 + i0, o2);
+      if constexpr (Z) return;
+    }
+  } else if constexpr (TAIL == CHEB_START) {
+    const float inv = 1.f / s0;
+    float o1[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      o0[k] = Z ? vd[k] * vb[k] : vd[k] * (vb[k] - acc[k]);
+      o1[k] = o0[k] * inv;
+    }
     store_vec<R>(y1 + i0, o1);
-    store_vec<R>(y2 + i0, o2);
   } else {
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       if constexpr (TAIL == SPMV) o0[k] = acc[k];
       else if constexpr (TAIL == RESIDUAL) o0[k] = vb[k] - acc[k];
-      else if constexpr (TAIL == DINV_RESIDUAL)
-        o0[k] = vd[k] * (vb[k] - acc[k]);
       else o0[k] = vx[k] + s0 * vd[k] * (vb[k] - acc[k]);
     }
   }
@@ -286,9 +321,10 @@ struct Args {
   float *y0, *y1, *y2;
 };
 
-template <typename BandT, int TAIL, int NB>
+template <typename BandT, int TAIL, int NB, bool Z = false>
 __global__ void __launch_bounds__(kThreads)
 dia_tile(const Args a) {
+  using V = TailVecs<TAIL, Z>;
   constexpr int R = Rows<BandT>::value;
   constexpr int TR = tile_rows<BandT>();
   constexpr int C = NB > 0 && NB < kChunk ? NB : kChunk;
@@ -303,38 +339,43 @@ dia_tile(const Args a) {
   const BandT* bands = static_cast<const BandT*>(a.bands);
 
   uint4 bv[C];
-  if (live) load_bands<BandT, C>(bands, n, i0, 0, nb, bv);
+  if (V::product && live) load_bands<BandT, C>(bands, n, i0, 0, nb, bv);
   float vb[R], vd[R], vx[R];
   if (live) {
-    if constexpr (TailVecs<TAIL>::n >= 1) load_vec<R>(a.b + i0, vb);
-    if constexpr (TailVecs<TAIL>::n >= 2) load_vec<R>(a.dinv + i0, vd);
-    if constexpr (TailVecs<TAIL>::n >= 3) load_vec<R>(a.x + i0, vx);
+    if constexpr (V::b) load_vec<R>(a.b + i0, vb);
+    if constexpr (V::dinv) load_vec<R>(a.dinv + i0, vd);
+    if constexpr (V::x) load_vec<R>(a.x + i0, vx);
   }
-  // stage v[tile0 - h, tile0 + TR + h), zeros outside [0, n)
-  for (int c = t; c < (TR + 2 * h) / 4; c += kThreads) {
-    const int64_t g = tile0 - h + 4 * c;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g >= 0 && g < n) val = __ldg(reinterpret_cast<const float4*>(a.v + g));
-    reinterpret_cast<float4*>(sv)[c] = val;
-  }
-  __syncthreads();
-  if (!live) return;
-
   float acc[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) acc[k] = 0.f;
+  if constexpr (V::product) {
+    // stage v[tile0 - h, tile0 + TR + h), zeros outside [0, n)
+    for (int c = t; c < (TR + 2 * h) / 4; c += kThreads) {
+      const int64_t g = tile0 - h + 4 * c;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g >= 0 && g < n)
+        val = __ldg(reinterpret_cast<const float4*>(a.v + g));
+      reinterpret_cast<float4*>(sv)[c] = val;
+    }
+    __syncthreads();
+    if (!live) return;
 #pragma unroll
-  for (int d0 = 0; d0 < nb; d0 += C) {
-    if (d0 > 0) load_bands<BandT, C>(bands, n, i0, d0, nb, bv);
+    for (int d0 = 0; d0 < nb; d0 += C) {
+      if (d0 > 0) load_bands<BandT, C>(bands, n, i0, d0, nb, bv);
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (d0 + c < nb)
-        add_band<R>(bv[c], a.offs.v[d0 + c], sv, h, t, a.v, n, i0, acc);
+      for (int c = 0; c < C; ++c)
+        if (d0 + c < nb)
+          add_band<R>(bv[c], a.offs.v[d0 + c], sv, h, t, a.v, n, i0, acc);
+    }
+  } else if (!live) {
+    return;
   }
   float dv[R];
-  if constexpr (TAIL == CHEB) near_window<R>(sv, h + t * R, dv);
-  tail_store<TAIL, R>(acc, vb, vd, vx, dv, a.s0, a.s1, i0, a.y0, a.y1,
-                      a.y2);
+  if constexpr (TAIL == CHEB || TAIL == CHEB_LAST)
+    near_window<R>(sv, h + t * R, dv);
+  tail_store<TAIL, Z, R>(acc, vb, vd, vx, dv, a.s0, a.s1, i0, a.y0, a.y1,
+                         a.y2);
 }
 
 // The boundary rows of a rank's row block (parallel/dist.py::DistDia).  A
@@ -380,9 +421,11 @@ __device__ __forceinline__ void ext_window(const float* __restrict__ v,
   }
 }
 
-template <typename BandT, int TAIL, int NB>
+template <typename BandT, int TAIL, int NB, bool Z = false>
 __global__ void __launch_bounds__(kThreads)
 dia_boundary(const BoundaryArgs ba) {
+  using V = TailVecs<TAIL, Z>;
+  static_assert(V::product, "a tail without a product has no boundary");
   constexpr int R = Rows<BandT>::value;
   constexpr int TR = tile_rows<BandT>();
   constexpr int C = NB > 0 && NB < kChunk ? NB : kChunk;
@@ -398,9 +441,9 @@ dia_boundary(const BoundaryArgs ba) {
   const BandT* bands = static_cast<const BandT*>(a.bands);
 
   float vb[R], vd[R], vx[R];
-  if constexpr (TailVecs<TAIL>::n >= 1) load_vec<R>(a.b + i0, vb);
-  if constexpr (TailVecs<TAIL>::n >= 2) load_vec<R>(a.dinv + i0, vd);
-  if constexpr (TailVecs<TAIL>::n >= 3) load_vec<R>(a.x + i0, vx);
+  if constexpr (V::b) load_vec<R>(a.b + i0, vb);
+  if constexpr (V::dinv) load_vec<R>(a.dinv + i0, vd);
+  if constexpr (V::x) load_vec<R>(a.x + i0, vx);
   float acc[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) acc[k] = 0.f;
@@ -420,39 +463,53 @@ dia_boundary(const BoundaryArgs ba) {
       }
   }
   float dv[R];
-  if constexpr (TAIL == CHEB) load_vec<R>(a.v + i0, dv);
-  tail_store<TAIL, R>(acc, vb, vd, vx, dv, a.s0, a.s1, i0, a.y0, a.y1,
-                      a.y2);
+  if constexpr (TAIL == CHEB || TAIL == CHEB_LAST) load_vec<R>(a.v + i0, dv);
+  tail_store<TAIL, Z, R>(acc, vb, vd, vx, dv, a.s0, a.s1, i0, a.y0, a.y1,
+                         a.y2);
 }
 
-template <typename BandT, int TAIL, int NB>
+template <typename BandT, int TAIL, int NB, bool Z>
 int launch_one(const Args& a, cudaStream_t s) {
   constexpr int TR = tile_rows<BandT>();
   const unsigned tiles = (unsigned)((a.n_pad + TR - 1) / TR);
-  const size_t smem = (size_t)(TR + 2 * a.halo) * sizeof(float);
-  dia_tile<BandT, TAIL, NB><<<tiles, kThreads, smem, s>>>(a);
+  const size_t smem = TailVecs<TAIL, Z>::product
+                          ? (size_t)(TR + 2 * a.halo) * sizeof(float)
+                          : 0;
+  dia_tile<BandT, TAIL, NB, Z><<<tiles, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename BandT, int TAIL, int NB>
+template <typename BandT, int TAIL, int NB, bool Z>
 int launch_one(const BoundaryArgs& ba, cudaStream_t s) {
-  constexpr int TR = tile_rows<BandT>();
-  const unsigned tiles =
-      (unsigned)(ba.lo_tiles + (ba.a.n_pad - ba.hi_row + TR - 1) / TR);
-  if (tiles == 0) return (int)cudaGetLastError();
-  dia_boundary<BandT, TAIL, NB><<<tiles, kThreads, 0, s>>>(ba);
-  return (int)cudaGetLastError();
+  if constexpr (!TailVecs<TAIL, Z>::product) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    constexpr int TR = tile_rows<BandT>();
+    const unsigned tiles =
+        (unsigned)(ba.lo_tiles + (ba.a.n_pad - ba.hi_row + TR - 1) / TR);
+    if (tiles == 0) return (int)cudaGetLastError();
+    dia_boundary<BandT, TAIL, NB, Z><<<tiles, kThreads, 0, s>>>(ba);
+    return (int)cudaGetLastError();
+  }
 }
 
-// Args for dia_tile, BoundaryArgs for dia_boundary
+// Args for dia_tile, BoundaryArgs for dia_boundary; `tail` a tail's code,
+// kZeroStart or'ed in for a Chebyshev tail's zero-start case
 template <typename BandT, int NB, typename A>
 int launch_tail(int tail, const A& a, cudaStream_t s) {
   switch (tail) {
-    case SPMV: return launch_one<BandT, SPMV, NB>(a, s);
-    case RESIDUAL: return launch_one<BandT, RESIDUAL, NB>(a, s);
-    case DINV_RESIDUAL: return launch_one<BandT, DINV_RESIDUAL, NB>(a, s);
-    case JACOBI: return launch_one<BandT, JACOBI, NB>(a, s);
-    case CHEB: return launch_one<BandT, CHEB, NB>(a, s);
+    case SPMV: return launch_one<BandT, SPMV, NB, false>(a, s);
+    case RESIDUAL: return launch_one<BandT, RESIDUAL, NB, false>(a, s);
+    case JACOBI: return launch_one<BandT, JACOBI, NB, false>(a, s);
+    case CHEB: return launch_one<BandT, CHEB, NB, false>(a, s);
+    case CHEB_START: return launch_one<BandT, CHEB_START, NB, false>(a, s);
+    case CHEB_LAST: return launch_one<BandT, CHEB_LAST, NB, false>(a, s);
+    case CHEB | kZeroStart: return launch_one<BandT, CHEB, NB, true>(a, s);
+    case CHEB_LAST | kZeroStart:
+      return launch_one<BandT, CHEB_LAST, NB, true>(a, s);
+    // no band loop: the one instantiation, whatever the band count
+    case CHEB_START | kZeroStart:
+      return launch_one<BandT, CHEB_START, 0, true>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

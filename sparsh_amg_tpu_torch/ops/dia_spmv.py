@@ -1,7 +1,15 @@
 """DIA SpMV and its fused tails: the Hopper port of the Pallas kernels in
 ``sparsh_amg_tpu/ops/pallas_spmv.py`` (``dia_spmv_pallas`` and ``_dia_fused``
 behind ``dia_residual``, ``dia_dinv_residual``, ``dia_jacobi_sweep`` and
-``dia_cheb_step``).  The kernel is ``csrc/dia_spmv.cu``.
+``dia_cheb_step``; ``dia_dinv_residual``'s r is the first output of
+``dia_cheb_start`` here).  The kernel is ``csrc/dia_spmv.cu``.
+
+``dia_cheb_start`` and ``dia_cheb_last`` are the port's own: the start
+of a Chebyshev smooth (r and d = r / theta in one pass; from a zero x,
+with no product) and its last step with the closing x + d' (one output),
+so that a smooth on a DIA level runs no elementwise kernel between its
+products.  ``dia_cheb_step`` takes x = None after a zero start (x is
+not read, x' is d).
 
 ``dia_fused_boundary`` is the port's own: on a rank's row block
 (``parallel/dist.py::DistDia``) it redoes a tail on the rows whose bands
@@ -21,7 +29,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-SPMV, RESIDUAL, DINV_RESIDUAL, JACOBI, CHEB = range(5)
+# A tail's code is its wrapper's index in WRAPPERS (csrc/dia_spmv.cu: a
+# profiler's dia_tile<band type, tail, ...> maps back to the wrapper).
+SPMV, RESIDUAL, JACOBI, CHEB, CHEB_START, CHEB_LAST = range(6)
+# or'ed into a Chebyshev tail's code for the kernel: x is zero and not
+# read (the start: no product), as x = None says to the wrappers
+ZERO_START = 16
 MAX_BANDS = 32          # the kernel's offset table (params.dia_max_bands)
 BAND_DTYPES = (torch.float32, torch.bfloat16)
 # Each kernel thread reads 16 bytes of a band row (8 bf16 or 4 fp32 rows)
@@ -50,9 +63,10 @@ def dia_plain(bands: torch.Tensor, offsets: tuple,
 def dia_fused_plain(tail, bands, offsets, v, b=None, dinv=None, x=None,
                     s0=0.0, s1=0.0):
     """The plain PyTorch version of every kernel entry: `tail` applied to
-    az = A v (see csrc/dia_spmv.cu for the five tails)."""
-    return _tail_plain(tail, dia_plain(bands, offsets, v), v, b, dinv, x,
-                       s0, s1)
+    az = A v (see csrc/dia_spmv.cu for the six tails).  A Chebyshev
+    tail's zero start: x None (CHEB_START: v None, no product)."""
+    az = None if v is None else dia_plain(bands, offsets, v)
+    return _tail_plain(tail, az, v, b, dinv, x, s0, s1)
 
 
 def _tail_plain(tail, az, v, b, dinv, x, s0, s1):
@@ -60,12 +74,17 @@ def _tail_plain(tail, az, v, b, dinv, x, s0, s1):
         return az
     if tail == RESIDUAL:
         return b - az
-    if tail == DINV_RESIDUAL:
-        return dinv * (b - az)
     if tail == JACOBI:
         return x + s0 * dinv * (b - az)
-    r2 = b - dinv * az                  # CHEB: v = d, b = r
-    return x + v, r2, s0 * v + s1 * r2
+    if tail == CHEB_START:              # v = x, s0 = theta
+        r = dinv * b if az is None else dinv * (b - az)
+        return r, r / s0
+    x2 = v if x is None else x + v      # CHEB, CHEB_LAST: v = d, b = r
+    r2 = b - dinv * az
+    d2 = s0 * v + s1 * r2
+    if tail == CHEB_LAST:
+        return x2 + d2
+    return x2, r2, d2
 
 
 def boundary_rows(offsets: tuple, n_pad: int, lo: bool, hi: bool):
@@ -81,7 +100,7 @@ def dia_boundary_plain(tail, bands, offsets, v, left, right, outs, lo, hi,
                        b=None, dinv=None, x=None, s0=0.0, s1=0.0):
     """The plain version of dia_fused_boundary: dia_fused_plain's tail on
     the extended vector [left | v | right], on the boundary rows only,
-    written into `outs`."""
+    written into the `outs` the kernel writes (``_written``)."""
     n, h = v.shape[0], left.shape[0]
     ext = torch.cat([left, v, right])
     lo_rows, hi_row = boundary_rows(offsets, n, lo, hi)
@@ -96,8 +115,9 @@ def dia_boundary_plain(tail, bands, offsets, v, left, right, outs, lo, hi,
         rows = lambda t: None if t is None else t[r0:r1]
         got = _tail_plain(tail, az, v[r0:r1], rows(b), rows(dinv), rows(x),
                           s0, s1)
-        for o, g in zip(outs, got if isinstance(got, tuple) else (got,)):
-            o[r0:r1] = g
+        got = got if isinstance(got, tuple) else (got,)
+        for i in _written(_code(tail, v, x), len(outs)):
+            outs[i][r0:r1] = got[i]
 
 
 def _check(bands, offsets, vecs):
@@ -143,28 +163,47 @@ def instantiation(bands: torch.Tensor, offsets: tuple) -> str:
     return f"{f'NB={nb}' if nb else 'runtime'} halo={halo}"
 
 
+def _code(tail, v, x):
+    """The kernel's code for `tail`: ZERO_START or'ed into a Chebyshev
+    tail whose x is None (CHEB_START multiplies x: its v)."""
+    zero = v is None if tail == CHEB_START else \
+        tail in (CHEB, CHEB_LAST) and x is None
+    return tail | ZERO_START if zero else tail
+
+
+def _written(code, n_out):
+    """The outputs a launch of `code` writes, by index: a zero-start CHEB
+    writes no x' (its wrapper returns d)."""
+    return range(int(code == CHEB | ZERO_START), n_out)
+
+
 def _launch(tail, bands, offsets, v, b, dinv, x, s0, s1, n_out):
     from .. import _build
     _check_aligned([t for t in (bands, v, b, dinv, x) if t is not None])
-    outs = [torch.empty_like(v) for _ in range(n_out)]
+    code, like = _code(tail, v, x), b if v is None else v
+    outs = [None] * n_out
+    for i in _written(code, n_out):
+        outs[i] = torch.empty_like(like)
     ptr = lambda t: None if t is None else t.data_ptr()
-    ys = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+    ys = [ptr(o) for o in outs] + [None] * (3 - n_out)
     rc = _build.lib().dia_fused_launch(
-        int(bands.dtype == torch.bfloat16), tail, bands.data_ptr(),
+        int(bands.dtype == torch.bfloat16), code, bands.data_ptr(),
         bands.shape[0], _c_offsets(offsets), bands.shape[1], ptr(v), ptr(b),
         ptr(dinv), ptr(x), float(s0), float(s1), *ys,
-        torch.cuda.current_stream(v.device).cuda_stream)
+        torch.cuda.current_stream(like.device).cuda_stream)
     _build.check(rc, "dia_fused")
     return outs
 
 
 def _run(wrapper, tail, bands, offsets, v, b=None, dinv=None, x=None,
          s0=0.0, s1=0.0, n_out=1):
-    _check(bands, offsets, [t for t in (v, b, dinv, x) if t is not None])
-    if v.device.type == "cpu":
+    vecs = [t for t in (v, b, dinv, x) if t is not None]
+    _check(bands, offsets, vecs)
+    dev = vecs[0].device
+    if dev.type == "cpu":
         return dia_fused_plain(tail, bands, offsets, v, b, dinv, x, s0, s1)
-    if v.device.type != "cuda":
-        raise ValueError(f"no DIA kernel for device {v.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no DIA kernel for device {dev}")
     outs = _launch(tail, bands, offsets, v, b, dinv, x, s0, s1, n_out)
     wrapper.launches += 1
     return outs[0] if n_out == 1 else tuple(outs)
@@ -180,23 +219,35 @@ def dia_residual(bands, x, b, offsets: tuple):
     return _run(dia_residual, RESIDUAL, bands, offsets, x, b=b)
 
 
-def dia_dinv_residual(bands, x, b, dinv, offsets: tuple):
-    """r = dinv * (b - A x): the Jacobi/Chebyshev residual from nonzero x."""
-    return _run(dia_dinv_residual, DINV_RESIDUAL, bands, offsets, x, b=b,
-                dinv=dinv)
-
-
 def dia_jacobi_sweep(bands, x, b, dinv, omega: float, offsets: tuple):
     """x' = x + omega * dinv * (b - A x): one weighted-Jacobi sweep."""
     return _run(dia_jacobi_sweep, JACOBI, bands, offsets, x, b=b, dinv=dinv,
                 x=x, s0=omega)
 
 
+def dia_cheb_start(bands, x, b, dinv, theta: float, offsets: tuple):
+    """The start of a Chebyshev smooth: r = dinv * (b - A x) and d = r /
+    theta.  x None: a zero start, r = dinv * b (no product).  Returns
+    (r, d)."""
+    return _run(dia_cheb_start, CHEB_START, bands, offsets, x, b=b,
+                dinv=dinv, s0=theta, n_out=2)
+
+
 def dia_cheb_step(bands, x, d, r, dinv, a: float, c: float, offsets: tuple):
     """One Chebyshev iteration: x' = x + d; r' = r - dinv * (A d);
-    d' = a*d + c*r'.  Returns (x', r', d')."""
-    return _run(dia_cheb_step, CHEB, bands, offsets, d, b=r, dinv=dinv, x=x,
-                s0=a, s1=c, n_out=3)
+    d' = a*d + c*r'.  Returns (x', r', d').  x None: x is zero and not
+    read, and x' is d itself."""
+    x2, r2, d2 = _run(dia_cheb_step, CHEB, bands, offsets, d, b=r,
+                      dinv=dinv, x=x, s0=a, s1=c, n_out=3)
+    return d if x is None else x2, r2, d2
+
+
+def dia_cheb_last(bands, x, d, r, dinv, a: float, c: float, offsets: tuple):
+    """The last Chebyshev iteration with the smooth's closing update:
+    (x + d) + (a*d + c*r'), r' = r - dinv * (A d).  x None: x is zero
+    and not read, d + (a*d + c*r')."""
+    return _run(dia_cheb_last, CHEB_LAST, bands, offsets, d, b=r, dinv=dinv,
+                x=x, s0=a, s1=c)
 
 
 def dia_fused_boundary(tail, bands, offsets, v, left, right, outs, lo, hi,
@@ -207,7 +258,11 @@ def dia_fused_boundary(tail, bands, offsets, v, left, right, outs, lo, hi,
     neighbour's entries (``boundary_rows``), v read from [left | v |
     right] (h entries each side, h >= every |offset|), in place.  `lo`,
     `hi`: the block has a left / right neighbour.  Both ends take one
-    launch; none where neither end has rows to redo."""
+    launch; none where neither end has rows to redo.  A Chebyshev tail
+    takes x None as its wrapper does; CHEB then leaves x' (d itself)
+    alone, and CHEB_START, which has no product then, has no boundary."""
+    if tail == CHEB_START and v is None:
+        raise ValueError("a zero-start CHEB_START has no product to redo")
     _check(bands, offsets, [t for t in (v, b, dinv, x, *outs)
                             if t is not None])
     h = left.shape[0]
@@ -231,18 +286,18 @@ def dia_fused_boundary(tail, bands, offsets, v, left, right, outs, lo, hi,
     _check_aligned([t for t in (bands, v, b, dinv, x, *outs)
                     if t is not None])
     ptr = lambda t: None if t is None else t.data_ptr()
-    ys = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    ys = [ptr(o) for o in outs] + [None] * (3 - len(outs))
     rc = _build.lib().dia_fused_boundary_launch(
-        int(bands.dtype == torch.bfloat16), tail, bands.data_ptr(),
-        bands.shape[0], _c_offsets(offsets), bands.shape[1], ptr(v),
-        ptr(left), ptr(right), h, int(lo), int(hi), ptr(b), ptr(dinv),
-        ptr(x), float(s0), float(s1), *ys,
+        int(bands.dtype == torch.bfloat16), _code(tail, v, x),
+        bands.data_ptr(), bands.shape[0], _c_offsets(offsets),
+        bands.shape[1], ptr(v), ptr(left), ptr(right), h, int(lo), int(hi),
+        ptr(b), ptr(dinv), ptr(x), float(s0), float(s1), *ys,
         torch.cuda.current_stream(v.device).cuda_stream)
     _build.check(rc, "dia_fused_boundary")
     dia_fused_boundary.launches += 1
 
 
-WRAPPERS = (dia_spmv, dia_residual, dia_dinv_residual, dia_jacobi_sweep,
-            dia_cheb_step, dia_fused_boundary)
+WRAPPERS = (dia_spmv, dia_residual, dia_jacobi_sweep, dia_cheb_step,
+            dia_cheb_start, dia_cheb_last, dia_fused_boundary)
 for _w in WRAPPERS:
     _w.launches = 0

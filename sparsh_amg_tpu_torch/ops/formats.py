@@ -26,8 +26,8 @@ import torch.nn.functional as F
 
 from .._native import csr_arrays, get_lib
 from ..utils import trace
-from .dia_spmv import (dia_cheb_step, dia_dinv_residual, dia_jacobi_sweep,
-                       dia_residual, dia_spmv)
+from .dia_spmv import (dia_cheb_last, dia_cheb_start, dia_cheb_step,
+                       dia_jacobi_sweep, dia_residual, dia_spmv)
 from .ell_spmv import ell_spmv
 from .split_rows import choose_lanes
 
@@ -49,10 +49,13 @@ class FusedDia:
     these products where the operator is one; every other layout runs an
     SpMV and plain elementwise PyTorch.
 
-    ``residual(x, b)``: b - A x; ``dinv_residual(x, b, dinv)``: dinv (b -
-    A x); ``jacobi_sweep(x, b, dinv, omega)``: x + omega dinv (b - A x);
-    ``cheb_step(x, d, r, dinv, a, c)``: (x + d, r', a d + c r') with r' =
-    r - dinv A d."""
+    ``residual(x, b)``: b - A x; ``jacobi_sweep(x, b, dinv, omega)``: x +
+    omega dinv (b - A x); ``cheb_start(x, b, dinv, theta)``: (r, r /
+    theta), r = dinv (b - A x); ``cheb_step(x, d, r, dinv, a, c)``: (x +
+    d, r', a d + c r') with r' = r - dinv A d; ``cheb_last(x, d, r, dinv,
+    a, c)``: (x + d) + (a d + c r').  The Chebyshev products take x None for a zero x, which
+    they do not read (``cheb_start`` then has no product, and
+    ``cheb_step`` returns d as x')."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,14 +77,17 @@ class DiaMatrix(FusedDia):
     def residual(self, x, b):
         return dia_residual(self.bands, x, b, self.offsets)
 
-    def dinv_residual(self, x, b, dinv):
-        return dia_dinv_residual(self.bands, x, b, dinv, self.offsets)
-
     def jacobi_sweep(self, x, b, dinv, omega):
         return dia_jacobi_sweep(self.bands, x, b, dinv, omega, self.offsets)
 
+    def cheb_start(self, x, b, dinv, theta):
+        return dia_cheb_start(self.bands, x, b, dinv, theta, self.offsets)
+
     def cheb_step(self, x, d, r, dinv, a, c):
         return dia_cheb_step(self.bands, x, d, r, dinv, a, c, self.offsets)
+
+    def cheb_last(self, x, d, r, dinv, a, c):
+        return dia_cheb_last(self.bands, x, d, r, dinv, a, c, self.offsets)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -54,8 +54,8 @@ import scipy.sparse as sp
 import torch
 import torch.distributed as dist
 
-from ..ops.dia_spmv import (CHEB, DINV_RESIDUAL, JACOBI, RESIDUAL, SPMV,
-                            dia_fused_boundary)
+from ..ops.dia_spmv import (CHEB, CHEB_LAST, CHEB_START, JACOBI, RESIDUAL,
+                            SPMV, dia_fused_boundary)
 from ..ops.ell_spmv import ell_plain, ell_spmv
 from ..ops.formats import (DenseMatrix, DiaMatrix, EllMatrix, FusedDia,
                            dia_offsets, pack_ell)
@@ -238,19 +238,26 @@ class DistDia(FusedDia):
         return self._fused(lambda: self.as_local().residual(x, b),
                            RESIDUAL, x, b=b)
 
-    def dinv_residual(self, x, b, dinv):
-        return self._fused(lambda: self.as_local().dinv_residual(x, b, dinv),
-                           DINV_RESIDUAL, x, b=b, dinv=dinv)
-
     def jacobi_sweep(self, x, b, dinv, omega):
         return self._fused(
             lambda: self.as_local().jacobi_sweep(x, b, dinv, omega), JACOBI,
             x, b=b, dinv=dinv, x=x, s0=omega)
 
+    def cheb_start(self, x, b, dinv, theta):
+        local = lambda: self.as_local().cheb_start(x, b, dinv, theta)
+        if x is None:                        # no product, so no halo
+            return local()
+        return self._fused(local, CHEB_START, x, b=b, dinv=dinv, s0=theta)
+
     def cheb_step(self, x, d, r, dinv, a, c):
         return self._fused(
             lambda: self.as_local().cheb_step(x, d, r, dinv, a, c), CHEB, d,
             b=r, dinv=dinv, x=x, s0=a, s1=c)
+
+    def cheb_last(self, x, d, r, dinv, a, c):
+        return self._fused(
+            lambda: self.as_local().cheb_last(x, d, r, dinv, a, c),
+            CHEB_LAST, d, b=r, dinv=dinv, x=x, s0=a, s1=c)
 
     def spmv_plain(self, x: torch.Tensor) -> torch.Tensor:
         """The same product in plain torch, in the promoted dtype of the

@@ -5,8 +5,6 @@ Each visit to a level is bracketed by the tracer's ``enter[l]`` and
 step or while tracing is off)."""
 from __future__ import annotations
 
-import torch
-
 from ..ops.formats import residual, spmv
 from ..utils import trace
 from .smoothers import smooth
@@ -19,11 +17,11 @@ def _cycle(levels, l, b, x, params, shape):
         x = lev.coarse_solve(b)
         trace.stamp("leave", l)
         return x
-    # pre-smooth (x may be a known-zero start)
-    zero0 = x is None
+    # pre-smooth (x None: a known-zero start, which the smoother makes
+    # where it reads it)
     coarse = l >= params.cheby_coarse_from
-    x = smooth(lev, b, torch.zeros_like(b) if zero0 else x, params,
-               zero_start=zero0, sweeps=params.nu1, coarse=coarse)
+    x = smooth(lev, b, x, params, zero_start=x is None, sweeps=params.nu1,
+               coarse=coarse)
     # coarse-grid correction
     r = residual(lev.A, x, b)
     rc = spmv(lev.R, r)

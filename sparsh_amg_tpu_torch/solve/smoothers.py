@@ -4,14 +4,18 @@ Weighted Jacobi, l1-Jacobi, Chebyshev and two-stage Gauss-Seidel.  On DIA
 levels each Jacobi sweep or Chebyshev step, and each Gauss-Seidel
 residual, is one fused product (``ops/formats.py::FusedDia``: one kernel
 on a ``DiaMatrix``, the same kernel and a boundary launch on a rank's
-block); elsewhere an SpMV plus plain elementwise PyTorch.  All smoothers preserve zero padding
-because dinv/l1_dinv are zero there.  Chebyshev scalars are computed in
+block); a Chebyshev smooth there runs those launches alone, its start
+and its closing x + d inside them.  Elsewhere an SpMV plus plain
+elementwise PyTorch.  A zero start may pass x = None to ``smooth``,
+which makes the zero unless the smoother never reads it.  All smoothers
+preserve zero padding because dinv/l1_dinv are zero there.  Chebyshev scalars are computed in
 fp32 (numpy scalars), as the JAX package computes them from its fp32
 lam_max.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.formats import FusedDia, residual, spmv
 
@@ -47,7 +51,10 @@ def l1_jacobi(level, b, x, sweeps: int, zero_start: bool = False):
 def chebyshev(level, b, x, degree: int, lower_frac: float,
               zero_start: bool = False):
     """Chebyshev polynomial smoother of the given degree on D^-1 A, with
-    eigenvalue window [lower_frac * lam_max, lam_max]."""
+    eigenvalue window [lower_frac * lam_max, lam_max].  On a FusedDia
+    level: a start product (r and d = r / theta; none after a zero
+    start), degree - 2 steps and a last step that writes x + d'; x may
+    be None there after a zero start."""
     if degree <= 0:
         return x
     f32 = np.float32
@@ -59,16 +66,17 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
     rho = f32(1.0) / sigma
     A = level.A
     fused = isinstance(A, FusedDia)
-    if zero_start:
-        r = level.dinv * b
-    elif fused:
-        r = A.dinv_residual(x, b, level.dinv)
+    if fused:
+        x = None if zero_start else x
+        r, d = A.cheb_start(x, b, level.dinv, float(theta))
     else:
-        r = level.dinv * (b - spmv(A, x))
-    d = r / float(theta)
-    for _ in range(degree - 1):
+        r = level.dinv * b if zero_start else level.dinv * (b - spmv(A, x))
+        d = r / float(theta)
+    for k in range(degree - 1):
         rho_new = f32(1.0) / (f32(2.0) * sigma - rho)
         a, c = float(rho_new * rho), float(f32(2.0) * rho_new / delta)
+        if fused and k == degree - 2:
+            return A.cheb_last(x, d, r, level.dinv, a, c)
         if fused:
             x, r, d = A.cheb_step(x, d, r, level.dinv, a, c)
         else:
@@ -76,7 +84,7 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
             r = r - level.dinv * spmv(A, d)
             d = a * d + c * r
         rho = rho_new
-    return x + d
+    return d if x is None else x + d
 
 
 def two_stage_gs(level, b, x, sweeps: int, stages: int = 2,
@@ -105,22 +113,25 @@ def smooth(level, b, x, params, zero_start: bool = False, sweeps: int = None,
            backward: bool = False, coarse: bool = False):
     """Dispatch on params.smoother.  `backward` selects the sweep direction
     of two-stage GS; `coarse` selects the reduced coarse-level Chebyshev
-    degree when configured."""
+    degree when configured.  x None: a zero start, whose zero is made
+    here unless the smoother never reads it (Chebyshev on a FusedDia
+    level)."""
     name = params.smoother
+    nu = sweeps if sweeps is not None else params.nu1
+    degree = (params.cheby_degree_coarse
+              if coarse and params.cheby_degree_coarse
+              else params.cheby_degree)
+    if x is None and not (name == "chebyshev" and degree > 0
+                          and isinstance(level.A, FusedDia)):
+        x = torch.zeros_like(b)
     if name == "jacobi":
-        nu = sweeps if sweeps is not None else params.nu1
         return jacobi(level, b, x, nu, params.jacobi_omega, zero_start)
     if name == "l1jacobi":
-        nu = sweeps if sweeps is not None else params.nu1
         return l1_jacobi(level, b, x, nu, zero_start)
     if name == "chebyshev":
-        degree = (params.cheby_degree_coarse
-                  if coarse and params.cheby_degree_coarse
-                  else params.cheby_degree)
         return chebyshev(level, b, x, degree,
                          params.cheby_lower_frac, zero_start)
     if name == "gs2":
-        nu = sweeps if sweeps is not None else params.nu1
         return two_stage_gs(level, b, x, nu, params.gs_stages, backward,
                             zero_start)
     raise ValueError(f"unknown smoother {name!r}")

@@ -90,10 +90,14 @@ def test_dia_fused_tails(mat, dt, tail):
         pallas = [jp.dia_residual(bands_j, J(x), J(b), **kw)]
         plain = [b - np.asarray(xla.spmv(J(x)))]
     elif tail == "dinv_residual":
-        got = [port.dia_dinv_residual(D.bands, T(x), T(b), T(dinv),
-                                      D.offsets)]
-        pallas = [jp.dia_dinv_residual(bands_j, J(x), J(b), J(dinv), **kw)]
+        # the port's Chebyshev start: the Pallas dinv_residual's r, and d
+        got = port.dia_cheb_start(D.bands, T(x), T(b), T(dinv), 1.7,
+                                  D.offsets)
+        r0 = np.asarray(jp.dia_dinv_residual(bands_j, J(x), J(b), J(dinv),
+                                             **kw))
+        pallas = [r0, r0 / np.float32(1.7)]
         plain = [dinv * (b - np.asarray(xla.spmv(J(x))))]
+        plain.append(plain[0] / np.float32(1.7))
     elif tail == "jacobi_sweep":
         got = [port.dia_jacobi_sweep(D.bands, T(x), T(b), T(dinv), 0.7,
                                      D.offsets)]

@@ -25,15 +25,21 @@ from sparsh_amg_tpu_torch.ops.formats import csr_to_dia, csr_to_ell
 from sparsh_amg_tpu_torch.parallel import dist
 from sparsh_amg_tpu_torch.parallel.dist import (DistDia, RankGroup,
                                                 csr_to_dist)
+from sparsh_amg_tpu_torch.params import AMGParams
 from sparsh_amg_tpu_torch.parallel.partition import Partition
 from sparsh_amg_tpu_torch.solve import smoothers
 from sparsh_amg_tpu_torch.solve.device import DeviceLevel
 
 RANKS = 4
 M = 12                      # poisson3d(12): blocks of 512 rows, h 256
-TAILS = {"spmv": K.SPMV, "residual": K.RESIDUAL,
-         "dinv_residual": K.DINV_RESIDUAL, "jacobi": K.JACOBI,
-         "cheb": K.CHEB}
+TAILS = {"spmv": K.SPMV, "residual": K.RESIDUAL, "jacobi": K.JACOBI,
+         "cheb": K.CHEB, "cheb_start": K.CHEB_START,
+         "cheb_start0": K.CHEB_START, "cheb0": K.CHEB,
+         "cheb_last": K.CHEB_LAST, "cheb_last0": K.CHEB_LAST}
+THETA = 1.0333333
+# a degree-3 Chebyshev smooth, as smooth() dispatches a cycle's
+CHEB3 = AMGParams().replace(smoother="chebyshev", cheby_degree=3,
+                            cheby_lower_frac=1 / 30)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,26 +78,33 @@ def _block(A, part, rank, dtype, v):
 
 
 def _product(op, tail, v, b, dinv, x):
-    """op's fused product of `tail` (CHEB: v is d, b is r)."""
+    """op's fused product of `tail` (the steps: v is d, b is r; the
+    start: v is x; a trailing 0: the zero start, x None)."""
     if tail == "spmv":
         return op.spmv(v)
     if tail == "residual":
         return op.residual(v, b)
-    if tail == "dinv_residual":
-        return op.dinv_residual(v, b, dinv)
     if tail == "jacobi":
         return op.jacobi_sweep(v, b, dinv, 0.7)
-    return op.cheb_step(x, v, b, dinv, 0.3, 0.9)
+    if tail.startswith("cheb_start"):
+        return op.cheb_start(None if tail.endswith("0") else v, b, dinv,
+                             THETA)
+    xs = None if tail.endswith("0") else x
+    if tail.startswith("cheb_last"):
+        return op.cheb_last(xs, v, b, dinv, 0.3, 0.9)
+    return op.cheb_step(xs, v, b, dinv, 0.3, 0.9)
 
 
 def _serial(whole, tail, v, b, dinv, x):
     """The same product of the whole matrix, plain."""
+    xs = None if tail.endswith("0") else x
     kw = {"spmv": {}, "residual": {"b": b},
-          "dinv_residual": {"b": b, "dinv": dinv},
           "jacobi": {"b": b, "dinv": dinv, "x": v, "s0": 0.7},
-          "cheb": {"b": b, "dinv": dinv, "x": x, "s0": 0.3, "s1": 0.9}}
-    return K.dia_fused_plain(TAILS[tail], whole.bands, whole.offsets, v,
-                             **kw[tail])
+          "cheb_start": {"b": b, "dinv": dinv, "s0": THETA}}.get(
+              tail.rstrip("0"),
+              {"b": b, "dinv": dinv, "x": xs, "s0": 0.3, "s1": 0.9})
+    return K.dia_fused_plain(TAILS[tail], whole.bands, whole.offsets,
+                             None if tail == "cheb_start0" else v, **kw)
 
 
 def _composed(op, tail, v, b, dinv, x):
@@ -103,12 +116,15 @@ def _composed(op, tail, v, b, dinv, x):
         return az
     if tail == "residual":
         return b - az
-    if tail == "dinv_residual":
-        return dinv * (b - az)
     if tail == "jacobi":
         return v + 0.7 * dinv * (b - az)
+    if tail.startswith("cheb_start"):
+        r = dinv * b if tail.endswith("0") else dinv * (b - az)
+        return r, r / THETA
+    x2 = v if tail.endswith("0") else x + v
     r2 = b - dinv * az
-    return x + v, r2, 0.3 * v + 0.9 * r2
+    d2 = 0.3 * v + 0.9 * r2
+    return x2 + d2 if tail.startswith("cheb_last") else (x2, r2, d2)
 
 
 def _tuple(t):
@@ -143,22 +159,41 @@ def test_rank_block_products_match_plain(tail, rank, dtype):
 def test_boundary_twin_writes_its_rows_only(rank, lo, hi):
     """The boundary entry's plain twin writes the rows boundary_rows names
     (the first max(-off) with a left neighbour, the last max(off) with a
-    right one) and no other."""
+    right one) and no other, in each output of the residual and of the
+    Chebyshev start, zero-start step and last step; the zero-start step
+    leaves its x' (d itself) alone, and a zero start, which has no
+    product, has no boundary."""
     A, part, whole, (v, b, dinv, x) = _setup(torch.float32)
     op = _block(A, part, rank, torch.float32, v)
     n, h = op.n_loc, op.h
     lo_rows, hi_row = K.boundary_rows(op.offsets, n, lo, hi)
     assert (lo_rows, hi_row) == (144 if lo else 0, n - 144 if hi else n)
     rows = slice(rank * n, (rank + 1) * n)
-    left, right = op.ranks.halo_start(v[rows], h)()
-    out = torch.full((n,), -7.0)
-    K.dia_fused_boundary(K.RESIDUAL, op.bands, op.offsets, v[rows], left,
-                         right, (out,), lo, hi, b=b[rows])
-    touched = out != -7.0
+    vl, bl, dl, xl = v[rows], b[rows], dinv[rows], x[rows]
+    left, right = op.ranks.halo_start(vl, h)()
     want = torch.zeros(n, dtype=torch.bool)
     want[:lo_rows] = True
     want[hi_row:] = True
-    assert torch.equal(touched, want)
+    steps = {"b": bl, "dinv": dl, "s0": 0.3, "s1": 0.9}
+    for tail, n_out, kw in (
+            (K.RESIDUAL, 1, {"b": bl}),
+            (K.CHEB_START, 2, {"b": bl, "dinv": dl, "s0": THETA}),
+            (K.CHEB, 3, steps),
+            (K.CHEB_LAST, 1, dict(steps, x=xl)),
+            (K.CHEB_LAST, 1, steps)):
+        outs = tuple(torch.full((n,), -7.0) for _ in range(n_out))
+        K.dia_fused_boundary(tail, op.bands, op.offsets, vl, left, right,
+                             outs, lo, hi, **kw)
+        zero_step = tail == K.CHEB
+        for i, out in enumerate(outs):
+            touched = out != -7.0
+            if zero_step and i == 0:
+                assert not touched.any()
+            else:
+                assert torch.equal(touched, want), (tail, i)
+    with pytest.raises(ValueError, match="no product"):
+        K.dia_fused_boundary(K.CHEB_START, op.bands, op.offsets, None, left,
+                             right, (bl, bl), lo, hi, b=bl, dinv=dl, s0=THETA)
 
 
 class _Spy:
@@ -167,9 +202,10 @@ class _Spy:
     def __init__(self, monkeypatch):
         self.calls = []
         for mod, name in ((formats, "dia_spmv"), (formats, "dia_residual"),
-                          (formats, "dia_dinv_residual"),
                           (formats, "dia_jacobi_sweep"),
-                          (formats, "dia_cheb_step"), (formats, "ell_spmv"),
+                          (formats, "dia_cheb_step"),
+                          (formats, "dia_cheb_start"),
+                          (formats, "dia_cheb_last"), (formats, "ell_spmv"),
                           (block_ell, "block_ell_spmv"),
                           (dist, "dia_fused_boundary")):
             monkeypatch.setattr(mod, name, self._wrap(name,
@@ -213,10 +249,10 @@ def _layouts():
                                   "one_rank_dist_dia"])
 def test_serial_layouts_dispatch_as_before(monkeypatch, case):
     """A DiaMatrix (and a one-rank DistDia) runs one fused kernel a
-    smoothing step and a residual; an ELL and a block-ELL level an SpMV
-    each, with plain elementwise torch: the calls each layout made before
-    rank blocks took the fused products, and no boundary launch.  The
-    residual equals the plain b - A x."""
+    Jacobi sweep and a residual, and a degree-3 Chebyshev smooth as a
+    start, a step and a last step (the zero start's without a product);
+    an ELL and a block-ELL level an SpMV each, with plain elementwise
+    torch; no boundary launch.  The residual equals the plain b - A x."""
     name, A_dev, kern, n = next(c for c in _layouts() if c[0] == case)
     spy = _Spy(monkeypatch)
     n_pad = A_dev.n_pad if hasattr(A_dev, "n_pad") else A_dev.n_loc
@@ -227,13 +263,12 @@ def test_serial_layouts_dispatch_as_before(monkeypatch, case):
     _, calls_c = spy.take(
         lambda: smoothers.chebyshev(lev, b, x, 3, 1 / 30))
     _, calls_0 = spy.take(
-        lambda: smoothers.chebyshev(lev, b, torch.zeros_like(b), 3, 1 / 30,
-                                    zero_start=True))
+        lambda: smoothers.smooth(lev, b, None, CHEB3, zero_start=True))
     res, calls_r = spy.take(lambda: formats.residual(A_dev, x, b))
     _, calls_j = spy.take(lambda: smoothers.jacobi(lev, b, x, 2, 0.7))
     if kern == "dia":
-        assert calls_c == ["dia_dinv_residual"] + ["dia_cheb_step"] * 2
-        assert calls_0 == ["dia_cheb_step"] * 2
+        assert calls_c == calls_0 == ["dia_cheb_start", "dia_cheb_step",
+                                      "dia_cheb_last"]
         assert calls_r == ["dia_residual"]
         assert calls_j == ["dia_jacobi_sweep"] * 2
     else:
@@ -244,7 +279,8 @@ def test_serial_layouts_dispatch_as_before(monkeypatch, case):
 
 def test_rank_block_smoother_takes_the_fused_products(monkeypatch):
     """On a rank's block the Chebyshev smoother and the residual run the
-    fused products: each one local launch, then one boundary launch."""
+    fused products: each one local launch, then one boundary launch; a
+    zero start's start tail has no product, so no boundary."""
     A, part, whole, (v, b, dinv, x) = _setup(torch.bfloat16)
     op = _block(A, part, 1, torch.bfloat16, v)
     rows = slice(op.n_loc, 2 * op.n_loc)
@@ -252,8 +288,14 @@ def test_rank_block_smoother_takes_the_fused_products(monkeypatch):
     lev = _level(op, op.n_loc)
     _, calls = spy.take(
         lambda: smoothers.chebyshev(lev, b[rows], v[rows], 2, 1 / 30))
-    assert calls == ["dia_dinv_residual", "dia_fused_boundary",
-                     "dia_cheb_step", "dia_fused_boundary"]
+    assert calls == ["dia_cheb_start", "dia_fused_boundary",
+                     "dia_cheb_last", "dia_fused_boundary"]
+    _, calls = spy.take(
+        lambda: smoothers.smooth(lev, b[rows], None, CHEB3,
+                                 zero_start=True))
+    assert calls == ["dia_cheb_start", "dia_cheb_step",
+                     "dia_fused_boundary", "dia_cheb_last",
+                     "dia_fused_boundary"]
     _, calls = spy.take(lambda: formats.residual(op, v[rows], b[rows]))
     assert calls == ["dia_residual", "dia_fused_boundary"]
 

@@ -47,8 +47,6 @@ def test_dia_kernel_tails_match_plain(cuda, dtype):
         (K.dia_spmv(bands, x, offs), K.dia_fused_plain(K.SPMV, bands, offs, x)),
         (K.dia_residual(bands, x, b, offs),
          K.dia_fused_plain(K.RESIDUAL, bands, offs, x, b=b)),
-        (K.dia_dinv_residual(bands, x, b, dinv, offs),
-         K.dia_fused_plain(K.DINV_RESIDUAL, bands, offs, x, b=b, dinv=dinv)),
         (K.dia_jacobi_sweep(bands, x, b, dinv, 0.7, offs),
          K.dia_fused_plain(K.JACOBI, bands, offs, x, b=b, dinv=dinv, x=x,
                            s0=0.7)),
@@ -57,6 +55,9 @@ def test_dia_kernel_tails_match_plain(cuda, dtype):
     want3 = K.dia_fused_plain(K.CHEB, bands, offs, d, b=r, dinv=dinv, x=x,
                               s0=0.3, s1=0.9)
     pairs += list(zip(got3, want3))
+    pairs += list(zip(K.dia_cheb_start(bands, x, b, dinv, 1.7, offs),
+                      K.dia_fused_plain(K.CHEB_START, bands, offs, x, b=b,
+                                        dinv=dinv, s0=1.7)))
     torch.cuda.synchronize()
     for got, want in pairs:
         assert _rel(got, want) <= 1e-5
@@ -82,7 +83,10 @@ DIA_OFFSETS = {
 # 128 rows, exactly one tile, one tile + 128, three tiles + 640
 DIA_NPAD = {"128": (0, 128), "tile": (1, 0), "tile+128": (1, 128),
             "3tiles+640": (3, 640)}
-DIA_TAILS = ("spmv", "residual", "dinv_residual", "jacobi", "cheb")
+# the Chebyshev start, step and last tails; a trailing 0: the zero start
+# (x not read; the start without a product)
+DIA_TAILS = ("spmv", "residual", "jacobi", "cheb",
+             "cheb_start", "cheb_start0", "cheb0", "cheb_last", "cheb_last0")
 
 
 @pytest.mark.parametrize("tail", DIA_TAILS)
@@ -136,10 +140,6 @@ def _dia_case(cuda, offsets, n, dtype, tail):
         "residual": (lambda: K.dia_residual(bands, x, b, offsets),
                      lambda: K.dia_fused_plain(K.RESIDUAL, bands, offsets,
                                                x, b=b)),
-        "dinv_residual": (
-            lambda: K.dia_dinv_residual(bands, x, b, dinv, offsets),
-            lambda: K.dia_fused_plain(K.DINV_RESIDUAL, bands, offsets, x,
-                                      b=b, dinv=dinv)),
         "jacobi": (
             lambda: K.dia_jacobi_sweep(bands, x, b, dinv, 0.7, offsets),
             lambda: K.dia_fused_plain(K.JACOBI, bands, offsets, x, b=b,
@@ -148,6 +148,28 @@ def _dia_case(cuda, offsets, n, dtype, tail):
             lambda: K.dia_cheb_step(bands, x, d, r, dinv, 0.3, 0.9, offsets),
             lambda: K.dia_fused_plain(K.CHEB, bands, offsets, d, b=r,
                                       dinv=dinv, x=x, s0=0.3, s1=0.9)),
+        "cheb_start": (
+            lambda: K.dia_cheb_start(bands, x, b, dinv, 1.7, offsets),
+            lambda: K.dia_fused_plain(K.CHEB_START, bands, offsets, x, b=b,
+                                      dinv=dinv, s0=1.7)),
+        "cheb_start0": (
+            lambda: K.dia_cheb_start(bands, None, b, dinv, 1.7, offsets),
+            lambda: K.dia_fused_plain(K.CHEB_START, bands, offsets, None,
+                                      b=b, dinv=dinv, s0=1.7)),
+        "cheb0": (
+            lambda: K.dia_cheb_step(bands, None, d, r, dinv, 0.3, 0.9,
+                                    offsets),
+            lambda: K.dia_fused_plain(K.CHEB, bands, offsets, d, b=r,
+                                      dinv=dinv, s0=0.3, s1=0.9)),
+        "cheb_last": (
+            lambda: K.dia_cheb_last(bands, x, d, r, dinv, 0.3, 0.9, offsets),
+            lambda: K.dia_fused_plain(K.CHEB_LAST, bands, offsets, d, b=r,
+                                      dinv=dinv, x=x, s0=0.3, s1=0.9)),
+        "cheb_last0": (
+            lambda: K.dia_cheb_last(bands, None, d, r, dinv, 0.3, 0.9,
+                                    offsets),
+            lambda: K.dia_fused_plain(K.CHEB_LAST, bands, offsets, d, b=r,
+                                      dinv=dinv, s0=0.3, s1=0.9)),
     }[tail]
     got, again, ref = run(), run(), want()
     torch.cuda.synchronize()
@@ -184,6 +206,80 @@ def test_dia_instantiations_and_alignment(cuda):
     v = torch.ones(129, device=cuda)[1:]
     with pytest.raises(ValueError, match="aligned"):
         K.dia_spmv(bands, v, (0,))
+
+
+# the DIA tables a Chebyshev smooth runs on: 3-D Poisson (7 bands, both
+# band types) and 2-D elasticity (21 bands), at a few tiles
+CHEB_TABLES = {"p3d-bf16": ("poisson3d", 40, torch.bfloat16),
+               "p3d-fp32": ("poisson3d", 40, torch.float32),
+               "e2d21-fp32": ("elasticity2d", 96, torch.float32)}
+
+
+@pytest.mark.parametrize("zero_start", [False, True], ids=["x", "zero"])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+@pytest.mark.parametrize("table", CHEB_TABLES)
+def test_cheb_smooth_has_the_parent_composition_bits(cuda, table, degree,
+                                                     zero_start):
+    """smoothers.chebyshev on a DiaMatrix on the card (start tail, steps,
+    last tail) gives the bits of the composition it replaces, run on the
+    same card from the older tails and plain adds."""
+    from test_torch_cheb_tails import _parent_chebyshev
+    from sparsh_amg_tpu_torch import models
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_dia
+    from sparsh_amg_tpu_torch.solve import smoothers
+    from sparsh_amg_tpu_torch.solve.device import DeviceLevel
+    name, m, dtype = CHEB_TABLES[table]
+    D = csr_to_dia(getattr(models, name)(m).tocsr(), dtype, device=cuda)
+    rng = np.random.default_rng(degree)
+    x, b = (_vec(rng, D.n_pad, cuda) for _ in range(2))
+    dinv = torch.from_numpy(rng.uniform(0.1, 0.2, D.n_pad).astype(
+        np.float32)).to(cuda)
+    lev = DeviceLevel(A=D, dinv=dinv, l1_dinv=dinv, lam_max=1.93, P=None,
+                      R=None, coarse_inv=None)
+    got = smoothers.chebyshev(lev, b, None if zero_start else x, degree,
+                              1 / 30, zero_start=zero_start)
+    want = _parent_chebyshev(lev, b, x, degree, 1 / 30, zero_start)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_captured_step_smooths_through_kernel_launches(cuda, monkeypatch):
+    """The flagship recipe's captured Krylov step (one V-cycle): each
+    smooth of a DIA level is one start tail, one step and one last tail
+    a replay, and the step graph holds 6 kernels fewer a DIA level visit
+    than the same step captured with the composition the smoother ran
+    before (a zero made, dinv * b, r / theta, x + d twice; 5 kernels),
+    rebuilt here with the fused residual and a plain product where the
+    parent's DINV_RESIDUAL tail was one launch (1 more)."""
+    from test_torch_cheb_tails import _parent_chebyshev
+    from sparsh_amg_tpu_torch.ops.formats import FusedDia
+    from sparsh_amg_tpu_torch.solve import smoothers
+
+    def step_of_a_warm_solver():
+        _, _, s, _ = _flagship_small(cuda)
+        s.warm()
+        levels = s.device.levels
+        fused = sum(isinstance(lv.A, FusedDia) for lv in levels[:-1])
+        step = s._loop().step
+        per = {w.__name__: n for w, n in step.per_replay.items()}
+        kinds = step.node_kinds()
+        s.release_graphs()
+        return per, kinds, fused
+
+    per, kinds, fused = step_of_a_warm_solver()
+    assert fused >= 1
+    assert per["dia_cheb_start"] == per["dia_cheb_last"] == 2 * fused
+    assert per["dia_cheb_step"] == 2 * fused          # degree 3
+    real = smoothers.chebyshev
+    monkeypatch.setattr(
+        smoothers, "chebyshev",
+        lambda lev, b, x, *a, **k: (_parent_chebyshev if isinstance(
+            lev.A, FusedDia) else real)(lev, b, x, *a, **k))
+    per0, kinds0, fused0 = step_of_a_warm_solver()
+    assert fused0 == fused and "dia_cheb_start" not in per0
+    assert per0["dia_cheb_step"] == 4 * fused
+    assert kinds0["kernel"] - kinds["kernel"] == 6 * fused
 
 
 # the fp64 pass finish (csrc/dia_finish64.cu): 2-D 5- and 9-point
@@ -760,11 +856,12 @@ def test_dist_block_kernels_match_plain(cuda, rank):
 def test_dist_block_fused_products_match_the_serial_kernel(cuda, rank,
                                                            dtype):
     """Every fused product on rank blocks of poisson3d(48) over 4 ranks
-    (halos cut from the whole vector, NaN at the domain's ends): the
+    (halos cut from the whole vector, NaN at the domain's ends), the
+    Chebyshev start, step and last tails from a zero start too: the
     local launch of the tail and the boundary launch give the rank's rows
     of one serial launch on the whole DiaMatrix of the same CSR, bit for
-    bit, with one launch of each and no halo read at an end the rank
-    lacks."""
+    bit, with one launch of each (the zero start's start, which has no
+    product, alone) and no halo read at an end the rank lacks."""
     import dataclasses
     from test_torch_dist_dia import CutHalos
     from sparsh_amg_tpu_torch.models import poisson3d
@@ -792,19 +889,28 @@ def test_dist_block_fused_products_match_the_serial_kernel(cuda, rank,
         ("dia_spmv", lambda: op.spmv(vl), lambda: K.dia_spmv(W, v, offs)),
         ("dia_residual", lambda: op.residual(vl, bl),
          lambda: K.dia_residual(W, v, b, offs)),
-        ("dia_dinv_residual", lambda: op.dinv_residual(vl, bl, dl),
-         lambda: K.dia_dinv_residual(W, v, b, dinv, offs)),
         ("dia_jacobi_sweep", lambda: op.jacobi_sweep(vl, bl, dl, 0.7),
          lambda: K.dia_jacobi_sweep(W, v, b, dinv, 0.7, offs)),
         ("dia_cheb_step", lambda: op.cheb_step(xl, vl, bl, dl, 0.3, 0.9),
          lambda: K.dia_cheb_step(W, x, v, b, dinv, 0.3, 0.9, offs)),
+        ("dia_cheb_start", lambda: op.cheb_start(vl, bl, dl, 1.7),
+         lambda: K.dia_cheb_start(W, v, b, dinv, 1.7, offs)),
+        ("dia_cheb_start", lambda: op.cheb_start(None, bl, dl, 1.7),
+         lambda: K.dia_cheb_start(W, None, b, dinv, 1.7, offs)),
+        ("dia_cheb_step", lambda: op.cheb_step(None, vl, bl, dl, 0.3, 0.9),
+         lambda: K.dia_cheb_step(W, None, v, b, dinv, 0.3, 0.9, offs)),
+        ("dia_cheb_last", lambda: op.cheb_last(xl, vl, bl, dl, 0.3, 0.9),
+         lambda: K.dia_cheb_last(W, x, v, b, dinv, 0.3, 0.9, offs)),
+        ("dia_cheb_last", lambda: op.cheb_last(None, vl, bl, dl, 0.3, 0.9),
+         lambda: K.dia_cheb_last(W, None, v, b, dinv, 0.3, 0.9, offs)),
     ]
-    for name, block, serial in cases:
+    for i, (name, block, serial) in enumerate(cases):
         got, launches = counted(block)
         want = serial()
         torch.cuda.synchronize()
+        boundary = {} if i == 5 else {"dia_fused_boundary": 1}  # no product
         assert {w: c for w, c in launches.items() if c} == \
-            {name: 1, "dia_fused_boundary": 1}, (name, launches)
+            {name: 1, **boundary}, (name, launches)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want, strict=True):
