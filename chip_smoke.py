@@ -499,6 +499,77 @@ def ell_case(tag, M, rng, results, time_it, same_bits=True):
                    extra=layout)
 
 
+# the ELL kernel's tails (ops/ell_spmv.py) and the vectors each reads
+# beyond its product's (for its bound): b; b and dinv; x
+ELL_TAILS = {"ell_residual": 1, "ell_jacobi_sweep": 2, "ell_spmv_add": 1}
+
+
+def ell_tail_case(tag, tail, M, rng, results, time_it):
+    """An ELL tail in one launch against the kernel's SpMV and the
+    elementwise PyTorch it replaces, bit for bit (a square operator's
+    residual and sweep read x, any other's residual and correction a
+    source of its columns); timed as launches and as graph replays."""
+    import torch
+    from sparsh_amg_tpu_torch.ops import ell_spmv as K
+    from sparsh_amg_tpu_torch.utils.accounting import op_bytes
+    dev = M.cols.device
+    vec = lambda n: torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(dev)
+    x, b, e = vec(M.n_pad), vec(M.n_pad), vec(max(M.n_cols, 1))
+    dinv = torch.from_numpy(rng.uniform(0.1, 0.2, M.n_pad).astype(
+        np.float32)).to(dev)
+    src = x if M.n_rows == M.n_cols else e
+    fused, composed = {
+        "ell_residual": (lambda: K.ell_residual(M, src, b),
+                         lambda: b - K.ell_spmv(M, src)),
+        "ell_jacobi_sweep": (lambda: K.ell_jacobi_sweep(M, x, b, dinv, 1.0),
+                             lambda: x + 1.0 * dinv * (b - K.ell_spmv(M, x))),
+        "ell_spmv_add": (lambda: K.ell_spmv_add(M, e, x),
+                         lambda: x + K.ell_spmv(M, e)),
+    }[tail]
+    work = None
+    if time_it:
+        real, padded = op_bytes(M)
+        more = 4 * M.n_pad * ELL_TAILS[tail]
+        work = (real + more, padded + more, 2 * M.nnz)
+    dt = "bf16" if M.vals.dtype == torch.bfloat16 else "fp32"
+    g, s = K.split_shape(M, dev)
+    rec = compare(f"{tail} {tag} {dt} n={M.n_rows} n_pad={M.n_pad} "
+                  f"T={M.lanes} V={M.vec} G={g} S={s}", fused, composed,
+                  results, time_it, work=work, same_bits=True, graph=time_it,
+                  extra={"T": M.lanes, "G": g, "S": s})
+    same = torch.equal(fused(), composed())
+    rec["composition_bits"] = same
+    if not same:
+        raise AssertionError(f"{rec['case']}: not the composition's bits")
+    return rec
+
+
+def ell_tail_cases(rng, results, dev):
+    """Every ELL tail on sliced packings (sorted, T = 4 x V = 4, T = 32)
+    and split rows over lanes and over a cluster, fp32 and bf16 values;
+    a residual and a correction on a short wide operator too."""
+    import scipy.sparse as sp
+    import torch
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_ell
+    from sparsh_amg_tpu_torch.systems import random_long_rows
+    R = (sp.random(700, 700, density=0.08, random_state=3)
+         + sp.eye(700)).tocsr()
+    for dt in (torch.float32, torch.bfloat16):
+        mats = [("random 700x700", csr_to_ell(R, dt, 2048, device=dev,
+                                              **pack))
+                for pack in ({}, dict(lanes=4, vec=4, sigma=64),
+                             dict(lanes=32, vec=1, sigma=4096))]
+        mats += [(f"long rows {shape}", csr_to_ell(
+            random_long_rows(*shape, seed=5), dt, 2048, device=dev))
+            for shape in ((3000, 3000, 1500), (1000, 1000, 800),
+                          (20, 4000, 3000))]
+        for tag, M in mats:
+            for tail in ELL_TAILS:
+                if tail != "ell_jacobi_sweep" or M.n_rows == M.n_cols:
+                    ell_tail_case(tag, tail, M, rng, results, False)
+
+
 def block_case(tag, M, rng, results, time_it, same_bits=True):
     """The block kernel against its plain version on one table, at the
     launch shape the solve gives it (W node rows a thread, T lanes a
@@ -671,12 +742,16 @@ def uncaptured(solver):
 
 def calls_per_operator(fn, levels):
     """Calls of the DIA, ELL and block SpMVs in fn(), by operator
-    ("L<i> A/P/R/L/U"), counted at the layouts' spmv methods (the fused
-    DIA tails, the wrappers and their launch counts are left as they
-    are); "other" is the Krylov matvec on its own fp32 operator."""
+    ("L<i> A/P/R/L/U"), counted at the layouts' spmv methods and at the
+    ELL tails (a residual, a Jacobi sweep, a correction: one product on
+    their operator each; the fused DIA tails, the wrappers and their
+    launch counts are left as they are); "other" is the Krylov matvec on
+    its own fp32 operator."""
+    from sparsh_amg_tpu_torch.ops import formats
     from sparsh_amg_tpu_torch.ops.block_ell import BlockEllMatrix
     from sparsh_amg_tpu_torch.ops.formats import DiaMatrix, EllMatrix
     classes = (DiaMatrix, EllMatrix, BlockEllMatrix)
+    tails = ("ell_residual", "ell_jacobi_sweep", "ell_spmv_add")
     names = {id(getattr(lev, f)): f"L{li} {f}"
              for li, lev in enumerate(levels) for f in FIELDS
              if isinstance(getattr(lev, f), classes)}
@@ -684,31 +759,40 @@ def calls_per_operator(fn, levels):
     real = [c.spmv for c in classes]
 
     def shim(method):
-        def spmv(self, x):
+        def spmv(self, *args, **kwargs):
             key = names.get(id(self), "other")
             calls[key] = calls.get(key, 0) + 1
-            return method(self, x)
+            return method(self, *args, **kwargs)
         return spmv
+    real_tails = [getattr(formats, t) for t in tails]
     for c, m in zip(classes, real):
         c.spmv = shim(m)
+    for t, f in zip(tails, real_tails):
+        setattr(formats, t, shim(f))
     try:
         fn()
     finally:
         for c, m in zip(classes, real):
             c.spmv = m
+        for t, f in zip(tails, real_tails):
+            setattr(formats, t, f)
     return calls
 
 
 def wrapper_of(kernel_name):
     """The wrapper of one of the package's kernels, by the kernel's name in
     a profiler trace (dia_tile's second template argument is the tail,
-    the index of its wrapper in dia_spmv.WRAPPERS; dia_boundary is
-    dia_fused_boundary's; the loop guard is loop_guard); None for
-    others."""
+    the index of its wrapper in dia_spmv.WRAPPERS, and the ELL kernels'
+    last one in ell_spmv.WRAPPERS; dia_boundary is dia_fused_boundary's;
+    the loop guard is loop_guard); None for others."""
+    from sparsh_amg_tpu_torch.ops import ell_spmv
     from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
     m = re.search(r"::dia_tile<[^,]+, (\d+),", kernel_name)
     if m:
         return WRAPPERS[int(m.group(1))].__name__
+    m = re.search(r"::ell_spmv(?:_split)?<[^>]*, (\d+)>", kernel_name)
+    if m:
+        return ell_spmv.WRAPPERS[int(m.group(1))].__name__
     if "::dia_boundary<" in kernel_name:
         return "dia_fused_boundary"
     for name in ("block_ell_spmv", "ell_spmv", "dia_finish64", "loop_guard"):
@@ -966,19 +1050,21 @@ CONFIG_TIMED = {
 # whose SpMV it must call (calls_per_operator's names)
 CONFIG_LAUNCHES = {
     "poisson2d_1024_wjacobi_V_cg": ("dia_jacobi_sweep", "dia_residual",
-                                    "dia_spmv", "ell_spmv"),
+                                    "dia_spmv", "ell_spmv", "ell_spmv_add"),
     "aniso2d_1024_eps1e-3_rot45_aggW_bicgstab": (
-        "dia_jacobi_sweep", "dia_residual", "dia_spmv", "ell_spmv"),
+        "dia_jacobi_sweep", "dia_residual", "dia_spmv", "ell_spmv",
+        "ell_residual", "ell_jacobi_sweep", "ell_spmv_add"),
     "aniso2d_2048_eps1e-3_rot45_aggW_bicgstab": (
-        "dia_jacobi_sweep", "dia_residual", "dia_spmv", "ell_spmv"),
+        "dia_jacobi_sweep", "dia_residual", "dia_spmv", "ell_spmv",
+        "ell_residual", "ell_jacobi_sweep", "ell_spmv_add"),
     "aniso2d_1024_pmis_extpi_W_gs2_bicgstab": ("dia_spmv", "dia_residual",
-                                               "ell_spmv"),
+                                               "ell_spmv", "ell_spmv_add"),
     "convection3d_96_pmis_extpi_V_bicgstab": ("dia_spmv", "dia_residual",
-                                              "ell_spmv"),
+                                              "ell_spmv", "ell_spmv_add"),
     "jump2d_1024_random_1e4_V_cg": ("dia_cheb_start", "dia_cheb_step",
                                     "dia_cheb_last", "dia_residual",
-                                    "dia_spmv", "ell_spmv"),
-    "delaunay_1024sq_rcm_l1jac_V_cg": ("ell_spmv",),
+                                    "dia_spmv", "ell_spmv", "ell_spmv_add"),
+    "delaunay_1024sq_rcm_l1jac_V_cg": ("ell_spmv", "ell_spmv_add"),
 }
 CONFIG_CALLS = {
     "aniso2d_1024_pmis_extpi_W_gs2_bicgstab": ("L0 L", "L0 U"),
@@ -1615,6 +1701,7 @@ def main(nside=192, dev="cuda"):
                 random_blocks(700, bs, bs), bs, dt, device=dev), rng, small,
                 time_it=False)
     long_row_cases(rng, small, dev)
+    ell_tail_cases(rng, small, dev)
 
     t0 = time.perf_counter()
     A = poisson3d(nside)
@@ -1642,6 +1729,11 @@ def main(nside=192, dev="cuda"):
     finish_case("p3d L0", solver.A64, rng, flag, time_it=True,
                 n_rows=A.shape[0])
     operator_cases("", levels, rng, flag, timed={"P0", "R0", "A1"})
+    # the tails on the flagship's first ELL level and its correction
+    for tail, M in (("ell_residual", levels[1].A),
+                    ("ell_jacobi_sweep", levels[1].A),
+                    ("ell_spmv_add", levels[0].P)):
+        ell_tail_case("flagship", tail, M, rng, flag, True)
     guard_cases(flag, dev)
 
     # -- 4. the flagship solve ---------------------------------------------
@@ -1784,6 +1876,11 @@ def main(nside=192, dev="cuda"):
               "sparsh_amg_tpu/parallel/dist.py:137"),
         entry("ell_spmv", "ell_spmv.cu", ("ell_spmv",), "ell_spmv R0",
               "sparsh_amg_tpu/ops/gell.py:266"),
+        # the port's own: an ELL product with its residual, Jacobi sweep
+        # or correction, plain elementwise XLA in the JAX package
+        entry("ell_fused", "ell_spmv.cu", tuple(ELL_TAILS),
+              "ell_spmv_add flagship",
+              "sparsh_amg_tpu/solve/smoothers.py:32"),
         entry("block_ell_spmv", "block_ell_spmv.cu", ("block_ell_spmv",),
               "block_ell_spmv e3d L0 fp32",
               "sparsh_amg_tpu/ops/block_gell.py:147"),

@@ -63,6 +63,9 @@ _ENTRIES = {
     # stream
     "ell_spmv_launch": [_i, _i, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                         _i, _p, _p, _p],
+    # the same, then v (for x), y, tail, b, dinv, x, s0, stream
+    "ell_fused_launch": [_i, _i, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                         _i, _i, _p, _p, _i, _p, _p, _p, _f, _p],
     # val_bf16, bs, cols, vals, lens, kn, n, n_pad, nodes (W), lanes (T),
     # split lanes, cluster, x, y, stream
     "block_ell_spmv_launch": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _i, _i,

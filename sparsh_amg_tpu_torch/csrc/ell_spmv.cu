@@ -22,6 +22,13 @@
 // because Mosaic has no general gather; a Hopper thread gathers from any
 // address.
 //
+// A launch may apply a tail to each row's sum az before it stores it
+// (Tail below; ops/ell_spmv.py names them): the residual b - az, the
+// Jacobi sweep x + (s0 dinv) (b - az) and the prolongation's x + az, so
+// that an l1-Jacobi or W-cycle visit to an ELL level runs no elementwise
+// kernel beside its products.  Each tail rounds op by op as the plain
+// PyTorch composition does (no contraction), so it gives its bits.
+//
 // Two launch shapes, picked by the wrapper:
 //  * sliced (every operator but the long-row SA transfers): one warp per
 //    slice walks the slice's steps, a uniform loop with no row-length
@@ -87,6 +94,30 @@ __device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
   for (int i = 0; i < V; ++i) v[i] = __uint_as_float((unsigned)h[i] << 16);
 }
 
+// A tail's code is its wrapper's index in ops/ell_spmv.py's WRAPPERS.
+enum TailCode { SPMV = 0, RESIDUAL = 1, JACOBI = 2, ADD = 3 };
+
+// The vectors of a tail: b, dinv and x have n_pad entries (null where
+// the tail reads none).  The code is each kernel's last template
+// argument, so a profiler's kernel name maps back to its wrapper.
+struct Tail {
+  const float* b;
+  const float* dinv;
+  const float* x;
+  float s0;
+};
+
+// What a launch of tail Code stores at row i of y for the row's sum az.
+template <int Code>
+__device__ __forceinline__ float finish(const Tail& t, int64_t i, float az) {
+  if (Code == RESIDUAL) return __fsub_rn(t.b[i], az);
+  if (Code == JACOBI)
+    return __fadd_rn(t.x[i], __fmul_rn(__fmul_rn(t.s0, t.dinv[i]),
+                                       __fsub_rn(t.b[i], az)));
+  if (Code == ADD) return __fadd_rn(t.x[i], az);
+  return az;
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -94,12 +125,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 
 // One warp per slice.  At most 32 registers a thread, so that an SM
 // holds 2,048 threads and as many slices' loads in flight.
-template <typename ValT, int T, int V>
+template <typename ValT, int T, int V, int Code>
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)
 ell_spmv(const int* __restrict__ cols, const ValT* __restrict__ vals,
           const int* __restrict__ off, const int* __restrict__ width,
           const int* __restrict__ perm, int n_slices, int n_rows,
-          int n_pad, const float* __restrict__ x, float* __restrict__ y) {
+          int n_pad, const float* __restrict__ x, float* __restrict__ y,
+          Tail t) {
   constexpr int C = 32 / T;
   const int slice =
       (int)(((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5);
@@ -108,7 +140,7 @@ ell_spmv(const int* __restrict__ cols, const ValT* __restrict__ vals,
   const int64_t r = (int64_t)slice * C + lane / T;
   const bool store = lane % T == 0 && r < n_pad;
   if ((int64_t)slice * C >= n_rows) {  // padding rows: perm is identity
-    if (store) y[r] = 0.f;
+    if (store) y[r] = finish<Code>(t, r, 0.f);
     return;
   }
   // in flight behind the slots; no perm: rows unsorted (sigma = 1)
@@ -130,19 +162,32 @@ ell_spmv(const int* __restrict__ cols, const ValT* __restrict__ vals,
 #pragma unroll
   for (int o = T / 2; o > 0; o >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, o, T);
-  if (store) y[dst] = acc;
+  if (store) y[dst] = finish<Code>(t, dst, acc);
+}
+
+// split::zero_padding's rows y[n, n_pad), each the tail of a zero sum.
+template <int Code>
+__device__ __forceinline__ void finish_padding(int64_t n, int64_t n_pad,
+                                               const Tail& t,
+                                               float* __restrict__ y) {
+  if (blockIdx.x != 0) return;
+  const int64_t step = (int64_t)gridDim.y * split::kRows * blockDim.y;
+  for (int64_t j = n + ((int64_t)blockIdx.y * blockDim.y + threadIdx.y) *
+                           split::kRows + threadIdx.x;
+       j < n_pad; j += step)
+    y[j] = finish<Code>(t, j, 0.f);
 }
 
 // T = V = 1: block row blockIdx.y is slice blockIdx.y (32 rows), thread
 // x its row x; slot k of the row at off + k * 32 + x.  The grid covers
 // the slices of the real rows only (packed rows [0, n_rows) are the real
 // rows, perm the identity past them).
-template <typename ValT>
+template <typename ValT, int Code>
 __global__ void __launch_bounds__(split::kRows * split::kMaxLanes)
 ell_spmv_split(const int* __restrict__ cols, const ValT* __restrict__ vals,
                 const int* __restrict__ off, const int* __restrict__ lens,
                 const int* __restrict__ perm, int n_rows, int n_pad,
-                const float* __restrict__ x, float* __restrict__ y) {
+                const float* __restrict__ x, float* __restrict__ y, Tail t) {
   const int64_t r = (int64_t)blockIdx.y * split::kRows + threadIdx.x;
   const int stride = split::slot_stride();
   float acc = 0.f;
@@ -157,55 +202,75 @@ ell_spmv_split(const int* __restrict__ cols, const ValT* __restrict__ vals,
              x[ci[(int64_t)k * split::kRows]];
   }
   float sum;
-  if (split::reduce(acc, &sum) && r < n_rows) y[perm ? perm[r] : r] = sum;
-  split::zero_padding(n_rows, n_pad, y);
+  if (split::reduce(acc, &sum) && r < n_rows) {
+    const int64_t i = perm ? perm[r] : r;
+    y[i] = finish<Code>(t, i, sum);
+  }
+  finish_padding<Code>(n_rows, n_pad, t, y);
 }
 
-template <typename ValT, int T, int V>
+template <typename ValT, int T, int V, int Code>
 int launch_sliced(const int* cols, const ValT* vals, const int* off,
                   const int* width, const int* perm, int n_slices,
                   int n_rows, int n_pad, const float* x, float* y,
-                  cudaStream_t s) {
+                  const Tail& t, cudaStream_t s) {
   int64_t blocks = ((int64_t)n_slices * 32 + kThreads - 1) / kThreads;
-  ell_spmv<ValT, T, V><<<(unsigned)blocks, kThreads, 0, s>>>(
-      cols, vals, off, width, perm, n_slices, n_rows, n_pad, x, y);
+  ell_spmv<ValT, T, V, Code><<<(unsigned)blocks, kThreads, 0, s>>>(
+      cols, vals, off, width, perm, n_slices, n_rows, n_pad, x, y, t);
   return (int)cudaGetLastError();
 }
 
-template <typename ValT, int T>
+template <typename ValT, int T, int Code>
 int launch_t(int vec, const int* cols, const ValT* vals, const int* off,
              const int* width, const int* perm, int n_slices, int n_rows,
-             int n_pad, const float* x, float* y, cudaStream_t s) {
+             int n_pad, const float* x, float* y, const Tail& t,
+             cudaStream_t s) {
   switch (vec) {
-    case 1: return launch_sliced<ValT, T, 1>(cols, vals, off, width, perm,
-                                             n_slices, n_rows, n_pad, x, y,
-                                             s);
-    case 4: return launch_sliced<ValT, T, 4>(cols, vals, off, width, perm,
-                                             n_slices, n_rows, n_pad, x, y,
-                                             s);
+    case 1: return launch_sliced<ValT, T, 1, Code>(
+        cols, vals, off, width, perm, n_slices, n_rows, n_pad, x, y, t, s);
+    case 4: return launch_sliced<ValT, T, 4, Code>(
+        cols, vals, off, width, perm, n_slices, n_rows, n_pad, x, y, t, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename ValT>
+template <typename ValT, int Code>
 int launch(int lanes, int vec, const int* cols, const ValT* vals,
            const int* off, const int* width, const int* perm,
            const int* lens, int n_slices, int n_rows, int n_pad, int g,
-           int cluster, const float* x, float* y, cudaStream_t s) {
+           int cluster, const float* x, float* y, const Tail& t,
+           cudaStream_t s) {
   if (g * cluster > 1 && n_rows > 0) {
     if (lanes != 1 || vec != 1) return (int)cudaErrorInvalidValue;
-    return split::launch(ell_spmv_split<ValT>, g, cluster, n_rows, s, cols,
-                         vals, off, lens, perm, n_rows, n_pad, x, y);
+    return split::launch(ell_spmv_split<ValT, Code>, g, cluster, n_rows, s,
+                         cols, vals, off, lens, perm, n_rows, n_pad, x, y,
+                         t);
   }
 #define SELL_T(T)                                                       \
   case T:                                                               \
-    return launch_t<ValT, T>(vec, cols, vals, off, width, perm, n_slices, \
-                             n_rows, n_pad, x, y, s);
+    return launch_t<ValT, T, Code>(vec, cols, vals, off, width, perm,    \
+                                   n_slices, n_rows, n_pad, x, y, t, s);
   switch (lanes) {
     SELL_T(1) SELL_T(2) SELL_T(4) SELL_T(8) SELL_T(16) SELL_T(32)
   }
 #undef SELL_T
   return (int)cudaErrorInvalidValue;
+}
+
+template <int Code>
+int launch_code(int val_bf16, int lanes, int vec, const int* cols,
+                const void* vals, const int* off, const int* width,
+                const int* perm, const int* lens, int n_slices, int n_rows,
+                int n_pad, int g, int cluster, const float* v, float* y,
+                const Tail& t, cudaStream_t s) {
+  if (val_bf16)
+    return launch<__nv_bfloat16, Code>(
+        lanes, vec, cols, static_cast<const __nv_bfloat16*>(vals), off,
+        width, perm, lens, n_slices, n_rows, n_pad, g, cluster, v, y, t, s);
+  return launch<float, Code>(lanes, vec, cols,
+                             static_cast<const float*>(vals), off, width,
+                             perm, lens, n_slices, n_rows, n_pad, g, cluster,
+                             v, y, t, s);
 }
 
 }  // namespace
@@ -215,7 +280,47 @@ int launch(int lanes, int vec, const int* cols, const ValT* vals,
 // n_rows, packed rows [0, n_rows) the real ones; perm null when the rows
 // are in their own order (sigma = 1).  g (lanes of a block) and
 // cluster (blocks) from the wrapper's chooser; g = cluster = 1 is the
-// sliced kernel, anything else the split rows (T = V = 1 only).
+// sliced kernel, anything else the split rows (T = V = 1 only).  tail:
+// a TailCode, with b, dinv, x (n_pad entries each, null where the tail
+// reads none) and s0 (JACOBI's omega); y must not alias v or them.
+extern "C" int ell_fused_launch(int val_bf16, int lanes, int vec,
+                                const int* cols, const void* vals,
+                                const int* off, const int* width,
+                                const int* perm, const int* lens,
+                                int n_slices, int n_rows, int n_pad, int g,
+                                int cluster, const float* v, float* y,
+                                int tail, const float* b, const float* dinv,
+                                const float* x, float s0, void* stream) {
+  if (lanes < 1 || lanes > 32 || n_rows < 0 || n_pad < n_rows ||
+      n_slices < 0 || (int64_t)n_slices * (32 / lanes) < n_pad || g < 1 ||
+      cluster < 1 || tail < SPMV || tail > ADD ||
+      ((tail == RESIDUAL || tail == JACOBI) && !b) ||
+      (tail == JACOBI && !dinv) || ((tail == JACOBI || tail == ADD) && !x))
+    return (int)cudaErrorInvalidValue;
+  if (n_slices == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tail t = {b, dinv, x, s0};
+  switch (tail) {
+    case SPMV: return launch_code<SPMV>(val_bf16, lanes, vec, cols, vals,
+                                        off, width, perm, lens, n_slices,
+                                        n_rows, n_pad, g, cluster, v, y, t,
+                                        s);
+    case RESIDUAL: return launch_code<RESIDUAL>(val_bf16, lanes, vec, cols,
+                                                vals, off, width, perm, lens,
+                                                n_slices, n_rows, n_pad, g,
+                                                cluster, v, y, t, s);
+    case JACOBI: return launch_code<JACOBI>(val_bf16, lanes, vec, cols, vals,
+                                            off, width, perm, lens, n_slices,
+                                            n_rows, n_pad, g, cluster, v, y,
+                                            t, s);
+    case ADD: return launch_code<ADD>(val_bf16, lanes, vec, cols, vals, off,
+                                      width, perm, lens, n_slices, n_rows,
+                                      n_pad, g, cluster, v, y, t, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// y = A x: ell_fused_launch with no tail.
 extern "C" int ell_spmv_launch(int val_bf16, int lanes, int vec,
                                const int* cols, const void* vals,
                                const int* off, const int* width,
@@ -223,17 +328,7 @@ extern "C" int ell_spmv_launch(int val_bf16, int lanes, int vec,
                                int n_slices, int n_rows, int n_pad, int g,
                                int cluster, const float* x, float* y,
                                void* stream) {
-  if (lanes < 1 || lanes > 32 || n_rows < 0 || n_pad < n_rows ||
-      n_slices < 0 || (int64_t)n_slices * (32 / lanes) < n_pad || g < 1 ||
-      cluster < 1)
-    return (int)cudaErrorInvalidValue;
-  if (n_slices == 0) return (int)cudaGetLastError();
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (val_bf16)
-    return launch(lanes, vec, cols, static_cast<const __nv_bfloat16*>(vals),
-                  off, width, perm, lens, n_slices, n_rows, n_pad, g,
-                  cluster, x, y, s);
-  return launch(lanes, vec, cols, static_cast<const float*>(vals), off,
-                width, perm, lens, n_slices, n_rows, n_pad, g, cluster, x,
-                y, s);
+  return ell_fused_launch(val_bf16, lanes, vec, cols, vals, off, width, perm,
+                          lens, n_slices, n_rows, n_pad, g, cluster, x, y,
+                          SPMV, nullptr, nullptr, nullptr, 0.f, stream);
 }

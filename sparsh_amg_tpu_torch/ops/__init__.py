@@ -7,12 +7,11 @@ def kernel_wrappers() -> tuple:
     mode's pass graphs and the tracer's stamp included)."""
     from ..solve.graphs import loop_guard
     from ..utils.trace import trace_stamp
-    from . import dia_spmv
+    from . import dia_spmv, ell_spmv
     from .block_ell import block_ell_spmv
-    from .ell_spmv import ell_spmv
     from .fp64 import dia_finish64
-    return (*dia_spmv.WRAPPERS, ell_spmv, block_ell_spmv, dia_finish64,
-            loop_guard, trace_stamp)
+    return (*dia_spmv.WRAPPERS, *ell_spmv.WRAPPERS, block_ell_spmv,
+            dia_finish64, loop_guard, trace_stamp)
 
 
 def counted(fn):

@@ -4,12 +4,19 @@ gell_gather_pallas`` and its row reduction.  The kernel is
 ``csrc/ell_spmv.cu``; the layout is ``ops/formats.py::EllMatrix``, built by
 ``pack_ell``.
 
-The wrapper takes the plain PyTorch version (a gather, a product, a sum
-per row and a scatter by ``perm``) for tensors on the CPU, launches the
-CUDA kernel for tensors on the card, and raises for anything else.
-``ell_spmv.launches`` counts kernel launches.  Rows of one lane and one
-slot per load (T = V = 1) may be split over lanes and clusters, as
-``split_rows.launch_shape`` says.
+``ell_residual`` (b - A x), ``ell_jacobi_sweep`` (x + omega dinv (b -
+A x)) and ``ell_spmv_add`` (x + A e, the prolongation's correction) are
+the port's own: the same kernel with a tail applied to each row's sum
+before it is stored, so that a Jacobi sweep, a residual or a correction
+on an ELL level is one launch, with the bits of the plain composition.
+
+Every wrapper takes the plain PyTorch version (a gather, a product, a
+sum per row and a scatter by ``perm``, then the tail) for tensors on the
+CPU, launches the CUDA kernel for tensors on the card, and raises for
+anything else.  Each wrapper counts its kernel launches in its
+``launches`` attribute.  Rows of one lane and one slot per load (T = V =
+1) may be split over lanes and clusters, as ``split_rows.launch_shape``
+says.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import torch
 
 from .split_rows import launch_shape
 
+# A tail's code is its wrapper's index in WRAPPERS (csrc/ell_spmv.cu)
+SPMV, RESIDUAL, JACOBI, ADD = range(4)
 VAL_DTYPES = (torch.float32, torch.bfloat16)
 LANES = (1, 2, 4, 8, 16, 32)
 VECS = (1, 4)
@@ -129,27 +138,77 @@ def split_shape(M, device) -> tuple:
     return 1, 1
 
 
-def ell_spmv(M, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for a packed ELL matrix (``EllMatrix``); x must cover every
-    column index.  y has n_pad entries, 0 on padding rows."""
-    _check(M, x)
-    if x.device.type == "cpu":
-        return ell_plain(M, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ELL kernel for device {x.device}")
+def _tail_plain(tail, az, b=None, dinv=None, x=None, s0=1.0):
+    """A tail on the row sums az, as the plain composition computes it."""
+    if tail == SPMV:
+        return az
+    if tail == RESIDUAL:
+        return b - az
+    if tail == JACOBI:
+        return x + s0 * dinv * (b - az)
+    return x + az
+
+
+def fusable(M, v: torch.Tensor, *vecs) -> bool:
+    """Whether a fused launch takes v (the product's source) and `vecs`
+    (the tail's vectors, one entry a row of y): fp32 throughout, the
+    vectors contiguous (n_pad,) tensors on v's device."""
+    return v.dtype == torch.float32 and all(
+        t.dtype == torch.float32 and t.shape == (M.n_pad,)
+        and t.is_contiguous() and t.device == v.device for t in vecs)
+
+
+def _launch(M, tail, v, b=None, dinv=None, x=None, s0=1.0):
+    _check(M, v)
+    vecs = [t for t in (b, dinv, x) if t is not None]
+    if not fusable(M, v, *vecs):
+        raise ValueError(f"the tail's vectors must be contiguous fp32 "
+                         f"({M.n_pad},) tensors on {v.device}")
+    if v.device.type == "cpu":
+        return _tail_plain(tail, ell_plain(M, v), b, dinv, x, s0)
+    if v.device.type != "cuda":
+        raise ValueError(f"no ELL kernel for device {v.device}")
     from .. import _build
-    g, s = split_shape(M, x.device)
-    y = torch.empty(M.n_pad, dtype=torch.float32, device=x.device)
-    rc = _build.lib().ell_spmv_launch(
+    g, s = split_shape(M, v.device)
+    y = torch.empty(M.n_pad, dtype=torch.float32, device=v.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _build.lib().ell_fused_launch(
         int(M.vals.dtype == torch.bfloat16), M.lanes, M.vec,
         M.cols.data_ptr(), M.vals.data_ptr(), M.slice_off.data_ptr(),
         M.slice_width.data_ptr(), M.perm.data_ptr() if M.sigma > 1 else 0,
         M.lens.data_ptr(),
-        M.n_slices, M.n_rows, M.n_pad, g, s, x.data_ptr(), y.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "ell_spmv")
-    ell_spmv.launches += 1
+        M.n_slices, M.n_rows, M.n_pad, g, s, v.data_ptr(), y.data_ptr(),
+        tail, ptr(b), ptr(dinv), ptr(x), s0,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(rc, WRAPPERS[tail].__name__)
+    WRAPPERS[tail].launches += 1
     return y
 
 
-ell_spmv.launches = 0
+def ell_spmv(M, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for a packed ELL matrix (``EllMatrix``); x must cover every
+    column index.  y has n_pad entries, 0 on padding rows."""
+    return _launch(M, SPMV, x)
+
+
+def ell_residual(M, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """b - A x in one launch."""
+    return _launch(M, RESIDUAL, x, b=b)
+
+
+def ell_jacobi_sweep(M, x: torch.Tensor, b: torch.Tensor,
+                     dinv: torch.Tensor, omega: float) -> torch.Tensor:
+    """x + omega dinv (b - A x) in one launch (omega dinv rounded to fp32
+    first, as the composition does)."""
+    return _launch(M, JACOBI, x, b=b, dinv=dinv, x=x, s0=omega)
+
+
+def ell_spmv_add(M, e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x + A e in one launch (the prolongation's correction; e must cover
+    every column index)."""
+    return _launch(M, ADD, e, x=x)
+
+
+WRAPPERS = (ell_spmv, ell_residual, ell_jacobi_sweep, ell_spmv_add)
+for _w in WRAPPERS:
+    _w.launches = 0

@@ -28,7 +28,8 @@ from .._native import csr_arrays, get_lib
 from ..utils import trace
 from .dia_spmv import (dia_cheb_last, dia_cheb_start, dia_cheb_step,
                        dia_jacobi_sweep, dia_residual, dia_spmv)
-from .ell_spmv import ell_spmv
+from .ell_spmv import (ell_jacobi_sweep, ell_residual, ell_spmv,
+                       ell_spmv_add, fusable)
 from .split_rows import choose_lanes
 
 # pack_ell sorts an operator's rows only when its slots fill this much:
@@ -133,10 +134,13 @@ class EllMatrix:
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x over the real slots.  x must have length >= n_cols."""
+        self._covers(x)
+        return ell_spmv(self, x)
+
+    def _covers(self, x: torch.Tensor) -> None:
         if x.shape[0] < self.n_cols:
             raise ValueError(f"x has {x.shape[0]} entries, the matrix "
                              f"{self.n_cols} columns")
-        return ell_spmv(self, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,10 +171,35 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
 
 
 def residual(A, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """r = b - A x, the fused product on DIA levels and rank blocks."""
+    """r = b - A x, the fused product on DIA levels, rank blocks and ELL
+    levels."""
     if isinstance(A, FusedDia):
         return A.residual(x, b)
+    if isinstance(A, EllMatrix) and fusable(A, x, b):
+        A._covers(x)
+        return ell_residual(A, x, b)
     return b - A.spmv(x)
+
+
+def jacobi_sweep(A, x: torch.Tensor, b: torch.Tensor, dinv: torch.Tensor,
+                 omega: float) -> torch.Tensor:
+    """x + omega dinv (b - A x), the fused product on DIA levels, rank
+    blocks and ELL levels."""
+    if isinstance(A, FusedDia):
+        return A.jacobi_sweep(x, b, dinv, omega)
+    if isinstance(A, EllMatrix) and fusable(A, x, b, dinv, x):
+        A._covers(x)
+        return ell_jacobi_sweep(A, x, b, dinv, omega)
+    return x + omega * dinv * (b - spmv(A, x))
+
+
+def spmv_add(A, e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x + A e (a prolongation's correction), one fused launch where A is
+    an ELL operator."""
+    if isinstance(A, EllMatrix) and fusable(A, e, x):
+        A._covers(e)
+        return ell_spmv_add(A, e, x)
+    return x + spmv(A, e)
 
 
 # ---------------------------------------------------------------------------

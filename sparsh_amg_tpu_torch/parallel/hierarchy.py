@@ -67,10 +67,12 @@ class DistLevel:
     def n_pad(self) -> int:
         return self.dinv.shape[0]
 
-    def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
+    def coarse_solve(self, b: torch.Tensor, tight: bool = False
+                     ) -> torch.Tensor:
         """(A_c^-1 b) on this rank's rows: all-gather b, then the local
         row slice of the dense inverse; without an inverse,
-        coarse_sweeps of l1-Jacobi."""
+        coarse_sweeps of l1-Jacobi.  Never padded (`tight` is the serial
+        level's)."""
         if self.coarse_inv is None:
             from ..solve.smoothers import l1_jacobi
             return l1_jacobi(self, b, torch.zeros_like(b),

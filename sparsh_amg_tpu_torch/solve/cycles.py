@@ -5,7 +5,7 @@ Each visit to a level is bracketed by the tracer's ``enter[l]`` and
 step or while tracing is off)."""
 from __future__ import annotations
 
-from ..ops.formats import residual, spmv
+from ..ops.formats import EllMatrix, residual, spmv, spmv_add
 from ..utils import trace
 from .smoothers import smooth
 
@@ -14,7 +14,9 @@ def _cycle(levels, l, b, x, params, shape):
     trace.stamp("enter", l)
     lev = levels[l]
     if lev.P is None or l == len(levels) - 1:
-        x = lev.coarse_solve(b)
+        # an ELL prolongation reads the solve's own rows (no pad)
+        x = lev.coarse_solve(b, tight=l > 0 and isinstance(
+            levels[l - 1].P, EllMatrix))
         trace.stamp("leave", l)
         return x
     # pre-smooth (x None: a known-zero start, which the smoother makes
@@ -35,7 +37,7 @@ def _cycle(levels, l, b, x, params, shape):
         ec = _cycle(levels, l + 1, rc, ec, params, "V")
     else:
         raise ValueError(f"unknown cycle {shape!r}")
-    x = x + spmv(lev.P, ec)
+    x = spmv_add(lev.P, ec, x)
     x = smooth(lev, b, x, params, zero_start=False, sweeps=params.nu2,
                backward=True, coarse=coarse)
     trace.stamp("leave", l)

@@ -46,16 +46,19 @@ class DeviceLevel:
     def n_pad(self) -> int:
         return self.dinv.shape[0]
 
-    def coarse_solve(self, b: torch.Tensor) -> torch.Tensor:
-        """The dense inverse (stored tight, 256-padded) as one fp32 matvec;
-        without one, coarse_sweeps of l1-Jacobi."""
+    def coarse_solve(self, b: torch.Tensor, tight: bool = False
+                     ) -> torch.Tensor:
+        """The dense inverse (stored tight, 256-padded) as one fp32 matvec,
+        zero-padded to b's length unless `tight` (then its own rows, which
+        cover the level's real rows); without one, coarse_sweeps of
+        l1-Jacobi."""
         if self.coarse_inv is None:
             from .smoothers import l1_jacobi
             return l1_jacobi(self, b, torch.zeros_like(b),
                              sweeps=self.coarse_sweeps, zero_start=True)
         r = self.coarse_inv.shape[-1]
         y = torch.mv(self.coarse_inv, b[:r])
-        if b.shape[0] > r:
+        if b.shape[0] > r and not tight:
             y = F.pad(y, (0, b.shape[0] - r))
         return y
 

@@ -25,6 +25,15 @@ code issues them, and the tallies (``trace.Tally``: the distributed
 solver's collectives) their own counts; during capture nothing launches,
 so a capture takes back what they counted and every replay adds it again
 (a pass graph adds its step graph's count once per iteration it ran).
+
+``GRAPH_KERNELS`` (the tally ``graph.kernels``) counts the kernels the
+captured graphs ran: at capture a ``ChunkGraph`` reads its graph's kernel
+nodes (``kernel_nodes``), every replay adds them, and a pass graph adds
+its heads' and tails' once, its step's once per iteration it ran and its
+guard kernel's iterations + 1 times.  It is always on and costs a
+host-side addition per launch, nothing on the device.  Eagerly (on the
+CPU, or a solver with ``capture`` off) nothing is captured and it counts
+nothing.
 """
 from __future__ import annotations
 
@@ -37,6 +46,8 @@ from ..ops import kernel_wrappers
 from ..utils import trace
 from .krylov import READS, loop_active, loop_record
 
+GRAPH_KERNELS = trace.Tally("graph.kernels")
+
 
 class ChunkGraph:
     """fn(bufs) -> outputs, written back into bufs: captured once on the
@@ -47,13 +58,16 @@ class ChunkGraph:
     which ``instantiate()`` or the first replay does (a graph that only a
     pass graph holds as a child is never instantiated alone);
     ``per_replay`` maps each kernel wrapper and tally to its launches
-    per replay."""
+    per replay, as the Python code issued them; ``kernel_nodes`` is the
+    captured graph's kernel nodes, which each replay adds to
+    ``GRAPH_KERNELS``."""
 
     def __init__(self, fn, bufs: tuple, capture: bool, pool=None):
         self.fn, self.bufs = fn, bufs
         self.graph = None
         self._instantiated = False
         self.per_replay = {}
+        self.kernel_nodes = 0
         self.capture_s = self.instantiate_s = 0.0
         if capture:
             self._capture(pool)
@@ -89,6 +103,7 @@ class ChunkGraph:
                 self.per_replay[w] = w.launches - n
             w.launches = n
         self.graph = graph
+        self.kernel_nodes = self.node_kinds().get("kernel", 0)
 
     def raw(self) -> int:
         """The captured cudaGraph_t."""
@@ -108,9 +123,11 @@ class ChunkGraph:
         return {k: n for k, n in zip(names, counts) if n}
 
     def count(self, times: int = 1) -> None:
-        """Add `times` replays' launches to the wrappers' counts."""
+        """Add `times` replays' launches to the wrappers' counts and their
+        kernel nodes to ``GRAPH_KERNELS``."""
         for w, n in self.per_replay.items():
             w.launches += n * times
+        GRAPH_KERNELS.add(self.kernel_nodes * times)
 
     def instantiate(self) -> None:
         """Instantiate the captured graph for replay (once)."""
@@ -298,6 +315,7 @@ class PassGraph:
             g.count()
         self.step.count(iters)
         loop_guard.launches += iters + 1
+        GRAPH_KERNELS.add(iters + 1)
         return prog, 1
 
     def release(self) -> None:

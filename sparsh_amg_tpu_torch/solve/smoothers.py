@@ -5,10 +5,11 @@ levels each Jacobi sweep or Chebyshev step, and each Gauss-Seidel
 residual, is one fused product (``ops/formats.py::FusedDia``: one kernel
 on a ``DiaMatrix``, the same kernel and a boundary launch on a rank's
 block); a Chebyshev smooth there runs those launches alone, its start
-and its closing x + d inside them.  Elsewhere an SpMV plus plain
-elementwise PyTorch.  A zero start may pass x = None to ``smooth``,
-which makes the zero unless the smoother never reads it.  All smoothers
-preserve zero padding because dinv/l1_dinv are zero there.  Chebyshev scalars are computed in
+and its closing x + d inside them.  On ELL levels each Jacobi sweep and
+each residual is one fused ELL launch (``ops/ell_spmv.py``).  Elsewhere
+an SpMV plus plain elementwise PyTorch.  A zero start may pass x = None
+to ``smooth``, which makes the zero unless the smoother never reads it.
+All smoothers preserve zero padding because dinv/l1_dinv are zero there.  Chebyshev scalars are computed in
 fp32 (numpy scalars), as the JAX package computes them from its fp32
 lam_max.
 """
@@ -17,22 +18,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.formats import FusedDia, residual, spmv
+from ..ops.formats import FusedDia, jacobi_sweep, residual, spmv
 
 
 def _jacobi_like(A, b, x, sweeps, dinv, omega, zero_start):
     """Shared weighted-Jacobi sweep loop; one fused product per sweep on
-    DIA levels."""
+    DIA and ELL levels.  A zero start does not read x."""
     if sweeps <= 0:
         return x
     if zero_start:
         x = omega * dinv * b if omega != 1.0 else dinv * b
         sweeps -= 1
     for _ in range(sweeps):
-        if isinstance(A, FusedDia):
-            x = A.jacobi_sweep(x, b, dinv, omega)
-        else:
-            x = x + omega * dinv * (b - spmv(A, x))
+        x = jacobi_sweep(A, x, b, dinv, omega)
     return x
 
 
@@ -115,14 +113,16 @@ def smooth(level, b, x, params, zero_start: bool = False, sweeps: int = None,
     of two-stage GS; `coarse` selects the reduced coarse-level Chebyshev
     degree when configured.  x None: a zero start, whose zero is made
     here unless the smoother never reads it (Chebyshev on a FusedDia
-    level)."""
+    level; a zero start's Jacobi sweeps)."""
     name = params.smoother
     nu = sweeps if sweeps is not None else params.nu1
     degree = (params.cheby_degree_coarse
               if coarse and params.cheby_degree_coarse
               else params.cheby_degree)
-    if x is None and not (name == "chebyshev" and degree > 0
-                          and isinstance(level.A, FusedDia)):
+    unread = (degree > 0 and isinstance(level.A, FusedDia)
+              if name == "chebyshev" else
+              zero_start and nu > 0 and name in ("jacobi", "l1jacobi"))
+    if x is None and not unread:
         x = torch.zeros_like(b)
     if name == "jacobi":
         return jacobi(level, b, x, nu, params.jacobi_omega, zero_start)

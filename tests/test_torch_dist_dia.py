@@ -206,6 +206,9 @@ class _Spy:
                           (formats, "dia_cheb_step"),
                           (formats, "dia_cheb_start"),
                           (formats, "dia_cheb_last"), (formats, "ell_spmv"),
+                          (formats, "ell_residual"),
+                          (formats, "ell_jacobi_sweep"),
+                          (formats, "ell_spmv_add"),
                           (block_ell, "block_ell_spmv"),
                           (dist, "dia_fused_boundary")):
             monkeypatch.setattr(mod, name, self._wrap(name,
@@ -251,8 +254,10 @@ def test_serial_layouts_dispatch_as_before(monkeypatch, case):
     """A DiaMatrix (and a one-rank DistDia) runs one fused kernel a
     Jacobi sweep and a residual, and a degree-3 Chebyshev smooth as a
     start, a step and a last step (the zero start's without a product);
-    an ELL and a block-ELL level an SpMV each, with plain elementwise
-    torch; no boundary launch.  The residual equals the plain b - A x."""
+    an ELL level one fused ELL launch a Jacobi sweep and a residual and
+    an SpMV a Chebyshev product, a block-ELL level an SpMV each, with
+    plain elementwise torch; no boundary launch.  The residual equals the
+    plain b - A x."""
     name, A_dev, kern, n = next(c for c in _layouts() if c[0] == case)
     spy = _Spy(monkeypatch)
     n_pad = A_dev.n_pad if hasattr(A_dev, "n_pad") else A_dev.n_loc
@@ -271,6 +276,10 @@ def test_serial_layouts_dispatch_as_before(monkeypatch, case):
                                       "dia_cheb_last"]
         assert calls_r == ["dia_residual"]
         assert calls_j == ["dia_jacobi_sweep"] * 2
+    elif kern == "ell_spmv":
+        assert (calls_c, calls_0, calls_r, calls_j) == \
+            ([kern] * 3, [kern] * 2, ["ell_residual"],
+             ["ell_jacobi_sweep"] * 2)
     else:
         assert (calls_c, calls_0, calls_r, calls_j) == \
             ([kern] * 3, [kern] * 2, [kern], [kern] * 2)

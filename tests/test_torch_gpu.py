@@ -1091,7 +1091,7 @@ def _profiled_wrappers(fn):
     """(counted() launches of fn, {wrapper: kernels the profiler saw})."""
     import re
     from torch.profiler import ProfilerActivity, profile
-    from sparsh_amg_tpu_torch.ops import counted
+    from sparsh_amg_tpu_torch.ops import counted, ell_spmv
     from sparsh_amg_tpu_torch.ops.dia_spmv import WRAPPERS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1100,7 +1100,9 @@ def _profiled_wrappers(fn):
     seen = {}
     for e in prof.events():
         m = re.search(r"::dia_tile<[^,]+, (\d+),", e.name)
+        m_ell = re.search(r"::ell_spmv(?:_split)?<[^>]*, (\d+)>", e.name)
         name = WRAPPERS[int(m.group(1))].__name__ if m else \
+            ell_spmv.WRAPPERS[int(m_ell.group(1))].__name__ if m_ell else \
             "dia_fused_boundary" if "::dia_boundary<" in e.name else next(
                 (w for w in ("block_ell_spmv", "ell_spmv", "dia_finish64",
                              "loop_guard")
@@ -1350,3 +1352,198 @@ def test_trace_anchors_map_a_sleep_into_its_host_span(cuda):
     assert dev["ms"] > 1.0
     assert host["start_ns"] - slack <= dev["start_ns"] < dev["end_ns"] \
         <= host["end_ns"] + slack
+
+
+# the kernels the captured graphs ran (tally graph.kernels) and the
+# benchmark's rotated-anisotropy cell, aniso2048.rhs
+
+ANISO = "aniso2d_2048_eps1e-3_rot45_aggW_bicgstab"
+
+
+def _aniso_small(cuda, m=128, **amg):
+    """The aniso cell's recipe (W-cycle, l1-Jacobi, BiCGStab) on
+    aniso2d(m), dense levels below 64 rows (and `amg`), its rhs on the
+    card."""
+    from sparsh_amg_tpu_torch import AMGSolver, configs
+    A, _ = configs.problem(ANISO, m)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    s = AMGSolver(A, configs.params(ANISO, dense_size=64, **amg),
+                  configs.krylov(ANISO), device=cuda)
+    return A, b, s, s.prepare_rhs(b)
+
+
+@pytest.mark.parametrize("case", ["aniso_w_bicgstab", "flagship_v_cg"])
+def test_graph_kernels_count_the_pass_graphs_kernel_nodes(cuda, case):
+    """graph.kernels over one solve is the kernel nodes of what its pass
+    graphs ran: the first pass's cast, each pass's init and finish once,
+    its step's nodes once an iteration, and the guard kernel iterations
+    + 1 times; each part's nodes read from its captured graph."""
+    from sparsh_amg_tpu_torch.solve.graphs import GRAPH_KERNELS
+    A, b, s, rhs = (_aniso_small if case.startswith("aniso")
+                    else _flagship_small)(cuda)
+    s.warm()
+    s.solve(rhs, tol=1e-2)
+    loop = s._loop()
+    nodes = {name: getattr(loop, name).node_kinds()["kernel"]
+             for name in ("cast", "init", "step", "finish")}
+    assert {name: getattr(loop, name).kernel_nodes for name in nodes} \
+        == nodes
+    before = GRAPH_KERNELS.launches
+    res = s.solve(rhs)
+    got = GRAPH_KERNELS.launches - before
+    iters = [k for k, _ in res.history]
+    want = nodes["cast"] + sum(nodes["init"] + nodes["finish"]
+                               + (nodes["step"] + 1) * k + 1
+                               for k in iters)
+    assert res.converged and res.refine_passes == len(iters) >= 2
+    assert got == want, (got, want, nodes, iters)
+    s.release_graphs()
+
+
+def test_aniso2048_w_cycle_matches_the_reference(cuda):
+    """One W-cycle of the set-up and frozen aniso2d(2048) solver on the
+    card against the benchmark's plain float64 reference
+    (amgbench/reference/wcycle.py) on the card over the same host
+    hierarchy, to the CPU test's tolerance in the residual space
+    (test_torch_aniso_cell.py)."""
+    from test_torch_aniso_cell import CYCLE_RTOL, residual_difference
+    from amgbench import harness
+    from sparsh_amg_tpu_torch import AMGSolver, configs
+    import os
+    wc = harness.load_module(
+        os.path.join(harness.BENCH_DIR, "reference", "wcycle.py"),
+        "amgbench_reference_wcycle")
+    A, _ = configs.problem(ANISO)
+    p = configs.params(ANISO)
+    s = AMGSolver(A, p, configs.krylov(ANISO), device=cuda)
+    levels = [(lev.A, lev.P, lev.R) for lev in s.hierarchy.levels]
+    assert s.perm is None and len(levels) == \
+        configs.REFERENCE[ANISO]["cpu"]["levels"]
+    ref = wc.WCycle(levels, p.nu1, p.nu2, device=cuda)
+    n = A.shape[0]
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(n)).to(
+        cuda)
+    bp = torch.zeros(s.n_pad, dtype=torch.float32, device=cuda)
+    bp[:n] = b.float()
+    got = s._cycle(s.device.levels, bp)[:n].double()
+    want = ref(b)
+    err = residual_difference(wc, A, got, want)
+    plain = float(torch.linalg.vector_norm(got - want)
+                  / torch.linalg.vector_norm(want))
+    print(f"aniso2d(2048) W-cycle against the fp64 reference: {err:.3e} "
+          f"in the residual space, {plain:.3e} plain")
+    assert err <= CYCLE_RTOL, err
+    s.release_graphs()
+
+
+# the ELL kernel's tails (ops/ell_spmv.py): square levels in the sliced
+# packings, split rows over lanes and over a cluster, and a short wide
+# operator whose padding rows the split launch's tail writes
+ELL_TAIL_MATRICES = {
+    "rule": (lambda: _rows_of_lengths(*ELL_SHAPES["delaunay-like"], seed=3),
+             None),
+    "T1V1unsorted": (lambda: _rows_of_lengths(*ELL_SHAPES["delaunay-like"],
+                                              seed=3), (1, 1, 1)),
+    "T4V4": (lambda: _rows_of_lengths(*ELL_SHAPES["R0-like"], seed=3),
+             (4, 4, 256)),
+    "T32V1": (lambda: _rows_of_lengths(*ELL_SHAPES["R0-like"], seed=3),
+              (32, 1, 4096)),
+    "split": ((3000, 3000, 1500), None),
+    "cluster": ((1000, 1000, 800), None),
+    "split 20x4000": ((20, 4000, 3000), None),
+}
+ELL_TAIL_CASES = [(t, c) for t in ("residual", "jacobi", "jacobi1", "add")
+                  for c in ELL_TAIL_MATRICES
+                  if not (t.startswith("jacobi") and c == "split 20x4000")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tail,case", ELL_TAIL_CASES)
+def test_ell_tails_are_the_kernel_composition(cuda, dtype, tail, case):
+    """Each ELL tail in one launch against the kernel's SpMV and the
+    elementwise PyTorch it replaces, bit for bit, padding rows included;
+    each launch counted, two launches with the same bits."""
+    from sparsh_amg_tpu_torch.ops import ell_spmv as K
+    from sparsh_amg_tpu_torch.ops.formats import csr_to_ell
+    from sparsh_amg_tpu_torch.ops.split_rows import launch_shape
+    from sparsh_amg_tpu_torch.systems import random_long_rows
+    make, packing = ELL_TAIL_MATRICES[case]
+    A = random_long_rows(*make, seed=5) if isinstance(make, tuple) \
+        else make()
+    pack = {} if packing is None else dict(zip(("lanes", "vec", "sigma"),
+                                               packing))
+    E = csr_to_ell(A, dtype, 2048, device=cuda, **pack)
+    g, s = launch_shape(E.n_rows, E.k, cuda)
+    assert (g * s > 1) == isinstance(make, tuple)
+    assert s > 1 or case != "cluster"
+    rng = np.random.default_rng(6)
+    x, b = _vec(rng, E.n_pad, cuda), _vec(rng, E.n_pad, cuda)
+    e = _vec(rng, E.n_cols, cuda)
+    dinv = torch.from_numpy(rng.uniform(0.1, 0.2, E.n_pad).astype(
+        np.float32)).to(cuda)
+    src = x if E.n_rows == E.n_cols else e
+    omega = 0.7 if tail == "jacobi" else 1.0
+    wrapper, fused, composed = {
+        "residual": (K.ell_residual, lambda: K.ell_residual(E, src, b),
+                     lambda: b - K.ell_spmv(E, src)),
+        "add": (K.ell_spmv_add, lambda: K.ell_spmv_add(E, e, x),
+                lambda: x + K.ell_spmv(E, e)),
+    }.get(tail, (K.ell_jacobi_sweep,
+                 lambda: K.ell_jacobi_sweep(E, x, b, dinv, omega),
+                 lambda: x + omega * dinv * (b - K.ell_spmv(E, x))))
+    before = wrapper.launches
+    got = fused()
+    assert wrapper.launches == before + 1
+    again, want = fused(), composed()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+def test_w_cycle_step_runs_the_ell_tails(cuda, monkeypatch):
+    """The aniso cell's captured BiCGStab step (two W-cycles) gives the
+    bits of the cycle before the ELL tails
+    (test_torch_ell_tails._parent_cycle) and holds fewer kernel nodes: a
+    residual, each sweep and each correction on an ELL level are one
+    launch, a zero start's sweeps make no zero, and the coarse solve
+    under an ELL prolongation is not padded."""
+    from test_torch_ell_tails import _parent_cycle, _visits
+    from sparsh_amg_tpu_torch.ops.formats import EllMatrix
+    from sparsh_amg_tpu_torch.solve import cycles
+
+    def warm_step():
+        # coarsened to 64 rows: ELL levels below the DIA ones
+        A, _, s, rhs = _aniso_small(cuda, coarse_size=64)
+        s.warm()
+        levels = s.device.levels
+        step = s._loop().step
+        per = {w.__name__: n for w, n in step.per_replay.items()}
+        kinds = step.node_kinds()
+        res = s.solve(rhs)
+        s.release_graphs()
+        return levels, per, kinds, res
+
+    levels, per, kinds, res = warm_step()
+    inner = range(len(levels) - 1)
+    visits = _visits(len(levels), "W")
+    ell_a = sum(visits[l] for l in inner if isinstance(levels[l].A,
+                                                       EllMatrix))
+    ell_p = sum(visits[l] for l in inner if isinstance(levels[l].P,
+                                                       EllMatrix))
+    assert isinstance(levels[-2].P, EllMatrix) and ell_a > 0
+    assert per["ell_residual"] == 2 * ell_a
+    assert per["ell_spmv_add"] == 2 * ell_p
+    assert per["ell_jacobi_sweep"] > 0
+    monkeypatch.setattr(cycles, "_cycle", _parent_cycle)
+    _, per0, kinds0, res0 = warm_step()
+    assert "ell_residual" not in per0 and "ell_spmv_add" not in per0
+    # each ELL visit: a residual 2 -> 1, a sweep 5 -> 1, a correction
+    # 2 -> 1; each zero start one zero fewer; the pad's kernels
+    saved = kinds0["kernel"] - kinds["kernel"]
+    print(f"W-BiCGStab step: {kinds['kernel']} kernel nodes, "
+          f"{kinds0['kernel']} before the ELL tails")
+    assert saved >= 2 * ell_a + 4 * per["ell_jacobi_sweep"] + 2 * ell_p
+    assert (res.iterations, res.refine_passes) == \
+        (res0.iterations, res0.refine_passes)
+    assert np.array_equal(res.x, res0.x)
